@@ -1,0 +1,93 @@
+"""Duplex streaming fbank chunker (counterpart of the GatingChunker in
+freeze_omni_tpu/frontend/chunker.py; models/AudioFeatureGating.py of the
+reference).
+
+224 ms chunks -> [1, 32, 80] fbank windows (28 new steps + 4 context steps),
+with a history ring for IPU-onset replay. State lives in host numpy; the
+fbank runs through the port's torch fbank on the CPU. The JAX package's
+native C++ chunker is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import GatingConfig
+from .fbank import fbank
+
+
+class GatingChunker:
+    """Duplex stateful fbank + gating (one per identity).
+
+    `process_and_gate` matches AudioFeatureGating.process_and_gate: features
+    are always extracted (state stays warm); chunks outside an IPU update the
+    history ring and return None; `ipu_sl` chunks attach the onset history
+    replay (`feature_last_chunk`, oldest first)."""
+
+    def __init__(self, cfg: GatingConfig = GatingConfig()):
+        self.cfg = cfg
+        self.fbank_cfg = cfg.fbank()
+        self.frame_overlap = self.fbank_cfg.frame_length - self.fbank_cfg.frame_shift
+        self.reset()
+
+    def reset(self) -> None:
+        c = self.cfg
+        self.input_sample = np.zeros(c.samples_per_chunk + self.frame_overlap, np.float32)
+        self.input_chunk = np.zeros((1, c.frames_per_step, c.feat_dim), np.float32)
+        self.history = np.zeros((c.history_size, c.frames_per_step, c.feat_dim), np.float32)
+
+    def extract(self, audio: np.ndarray) -> np.ndarray:
+        """audio: [samples_per_chunk] float in [-1, 1] -> [1, 32, 80]."""
+        c = self.cfg
+        sample_data = np.asarray(audio, np.float32).reshape(-1) * 32767.0
+        self.input_sample[: self.frame_overlap] = self.input_sample[-self.frame_overlap :]
+        self.input_sample[self.frame_overlap :] = sample_data
+        xs = fbank(torch.from_numpy(self.input_sample), self.fbank_cfg).numpy()
+        self.input_chunk[:, : c.context_steps] = self.input_chunk[:, -c.context_steps :]
+        self.input_chunk[:, c.context_steps :] = xs
+        return self.input_chunk.copy()
+
+    def process_and_gate(self, annotated_audio: dict) -> Optional[dict]:
+        status = annotated_audio["status"]
+        feature = self.extract(annotated_audio["audio"])
+
+        if status is None:
+            self.history[:-1] = self.history[1:]
+            self.history[-1] = feature[0]
+            return None
+
+        out = {"feature": feature, "status": status, "feature_last_chunk": []}
+        if status == "ipu_sl" and self.cfg.onset_cache_size > 0:
+            out["feature_last_chunk"] = [
+                self.history[i][None] for i in range(-self.cfg.onset_cache_size, 0)
+            ]
+        return out
+
+
+def gate_stream(chunker: GatingChunker, audio: np.ndarray,
+                statuses) -> List[Tuple[np.ndarray, bool]]:
+    """Cut `audio` into chunks of the chunker's size (the last one
+    zero-padded), gate each with its status (None, 'ipu_sl', 'ipu_cl', ...),
+    and return the engine submissions in order: [(fbank [1, T, 80], is_sl)].
+    An `ipu_sl` chunk's onset replay is expanded as the duplex service does
+    (dialog_state_pred.py:639-670): the history chunks first, the oldest as
+    ipu_sl and the rest as ipu_cl, then the current chunk as ipu_cl."""
+    n = chunker.cfg.samples_per_chunk
+    items: List[Tuple[np.ndarray, bool]] = []
+    for i, status in enumerate(statuses):
+        chunk = np.zeros(n, np.float32)
+        seg = audio[i * n:(i + 1) * n]
+        chunk[:len(seg)] = seg
+        gated = chunker.process_and_gate({"audio": chunk, "status": status})
+        if gated is None:
+            continue
+        replay = gated["feature_last_chunk"]
+        if replay and gated["status"] == "ipu_sl":
+            items += [(f, j == 0) for j, f in enumerate(replay)]
+            items.append((gated["feature"], False))
+        else:
+            items.append((gated["feature"], gated["status"] == "ipu_sl"))
+    return items

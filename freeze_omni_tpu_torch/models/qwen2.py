@@ -1,0 +1,300 @@
+"""Qwen2-class decoder-only LLM backbone (counterpart of freeze_omni_tpu/models/qwen2.py).
+
+- a static-shape KV cache [L, B, S_max, Hkv, dk] + per-row length. Chunks
+  arrive padded to a static length with a validity mask; valid tokens are
+  compacted into the cache (rank/cumsum) and invalid ones are parked in the
+  scratch slot S-1, so one code path serves every chunk and sessions batch
+  along B;
+- GQA, RoPE, RMSNorm, SwiGLU and q/k/v biases as in Qwen2;
+- an int8 cache variant (per-token, per-kv-head scales) quantized on append
+  and read by the int8-KV prefill attention kernel (ops/attention.py, K2).
+
+Unlike the JAX version, which threads the cache functionally, `forward` and
+`roll_kv` update the cache tensors IN PLACE (and also return the cache, to
+keep the JAX signatures): the per-session KV pool is preallocated once.
+Parameters keep the JAX layout: layer leaves are stacked [L, ...].
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..config import LLMConfig
+from ..ops.attention import prefill_quant
+from ..utils.device import resolve_device
+from .layers import (NEG_INF, _uniform, embedding, layer_params, linear,
+                     linear_init, rms_norm, rms_norm_init, rotary_embed)
+
+
+class KVCache(NamedTuple):
+    """Static-shape KV cache; int8 when k_scale/v_scale are present."""
+
+    k: torch.Tensor       # [L, B, S_max, Hkv, dk] (bf16/f32, or int8 if quant)
+    v: torch.Tensor       # [L, B, S_max, Hkv, dk]
+    length: torch.Tensor  # [B] int32 — valid prefix length per row
+    k_scale: Optional[torch.Tensor] = None  # [L, B, S_max, Hkv] f32
+    v_scale: Optional[torch.Tensor] = None
+
+
+def init_cache(cfg: LLMConfig, batch: int = 1, max_len: Optional[int] = None,
+               dtype=torch.bfloat16, quant_bits: Optional[int] = None,
+               device=None) -> KVCache:
+    """Zeroed cache on `device` (None: the CUDA card)."""
+    device = resolve_device(device)
+    s = max_len or cfg.max_kv_len
+    shape = (cfg.num_layers, batch, s, cfg.num_kv_heads, cfg.head_dim)
+    length = torch.zeros(batch, dtype=torch.int32, device=device)
+    if quant_bits is None:
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device),
+                       length=length)
+    if quant_bits != 8:
+        raise ValueError(f"unsupported kv quant_bits {quant_bits!r} (8 or None)")
+    return KVCache(
+        k=torch.zeros(shape, dtype=torch.int8, device=device),
+        v=torch.zeros(shape, dtype=torch.int8, device=device), length=length,
+        k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+
+
+def quantize_kv_vectors(x: torch.Tensor):
+    """Symmetric int8 over the last (head_dim) axis: x [..., dk] ->
+    (q int8 [..., dk], scale f32 [...])."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def quantize_cache(kv: KVCache, quant_bits: int = 8) -> KVCache:
+    """Float cache -> new int8 cache (per-token-per-head scales)."""
+    if kv.k_scale is not None:
+        return kv
+    if quant_bits != 8:
+        raise ValueError(f"unsupported kv quant_bits {quant_bits!r}")
+    kq, ks = quantize_kv_vectors(kv.k)
+    vq, vs = quantize_kv_vectors(kv.v)
+    return KVCache(k=kq, v=vq, length=kv.length.clone(), k_scale=ks, v_scale=vs)
+
+
+def dequantize_cache(kv: KVCache, dtype=torch.bfloat16) -> KVCache:
+    """int8 cache -> new float cache."""
+    if kv.k_scale is None:
+        return kv
+    k = (kv.k.float() * kv.k_scale[..., None]).to(dtype)
+    v = (kv.v.float() * kv.v_scale[..., None]).to(dtype)
+    return KVCache(k=k, v=v, length=kv.length.clone())
+
+
+def init_layer_stack(cfg: LLMConfig, gen: torch.Generator, num_layers: int,
+                     dtype=torch.bfloat16, device=None):
+    """Stacked float decoder-layer params [num_layers, ...]."""
+    device = resolve_device(device)
+    D, H, Hkv, dk = cfg.hidden, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L = num_layers
+
+    def lin(i, o, bias):
+        bound = 1.0 / math.sqrt(i)
+        p = {"w": _uniform(gen, (L, i, o), bound, dtype, device)}
+        if bias:
+            p["b"] = _uniform(gen, (L, o), bound, dtype, device)
+        return p
+
+    ones = lambda: {"scale": torch.ones((L, D), dtype=dtype, device=device)}  # noqa: E731
+    return {"ln1": ones(), "q": lin(D, H * dk, cfg.qkv_bias),
+            "k": lin(D, Hkv * dk, cfg.qkv_bias), "v": lin(D, Hkv * dk, cfg.qkv_bias),
+            "o": lin(H * dk, D, False), "ln2": ones(),
+            "gate": lin(D, cfg.ffn, False), "up": lin(D, cfg.ffn, False),
+            "down": lin(cfg.ffn, D, False)}
+
+
+def init_params(cfg: LLMConfig, gen: torch.Generator, dtype=torch.bfloat16,
+                device=None) -> dict:
+    device = resolve_device(device)
+    D = cfg.hidden
+    params = {
+        "embed": {"w": (torch.randn((cfg.vocab_size, D), generator=gen,
+                                    device=device) * 0.02).to(dtype)},
+        "layers": init_layer_stack(cfg, gen, cfg.num_layers, dtype, device),
+        "final_norm": rms_norm_init(D, dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = linear_init(gen, D, cfg.vocab_size, bias=False,
+                                        dtype=dtype, device=device)
+    return params
+
+
+def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:
+    """Token embeddings; the per-row int8 table always yields bf16."""
+    p = params["embed"]
+    if "w_q" in p:
+        rows = p["w_q"][ids].float()
+        return (rows * p["scale"][ids][..., None]).to(torch.bfloat16)
+    return embedding(p, ids)
+
+
+def _gqa_attention(q, k_all, v_all, mask, rep: int):
+    """Float-cache attention. q: [B,T,H,dk]; k_all/v_all: [B,S,Hkv,dk];
+    mask: [B,T,S] bool. Returns [B, T, H*dk] in q's dtype."""
+    B, T, H, dk = q.shape
+    Hkv = k_all.shape[2]
+    dt = torch.promote_types(q.dtype, k_all.dtype)
+    qg = q.reshape(B, T, Hkv, rep, dk).to(dt)
+    scores = torch.einsum("bthrd,bshd->bhrts", qg, k_all.to(dt)) / math.sqrt(dk)
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    attn = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    dt2 = torch.promote_types(attn.dtype, v_all.dtype)
+    out = torch.einsum("bhrts,bshd->bthrd", attn.to(dt2), v_all.to(dt2))
+    return out.reshape(B, T, H * dk).to(q.dtype)
+
+
+def _apply_rot(x, cos, sin):
+    """Rotate-half RoPE in f32; x: [B, T, H, dk], cos/sin: [B, T, dk]."""
+    d2 = x.shape[-1] // 2
+    rot = torch.cat([-x[..., d2:], x[..., :d2]], dim=-1)
+    y = x * cos[:, :, None, :] + rot * sin[:, :, None, :]
+    return y.to(x.dtype)
+
+
+def forward(params, cfg: LLMConfig, embeds: torch.Tensor, mask: torch.Tensor,
+            cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill/decode step over a static-length chunk of embeddings.
+
+    embeds: [B, T, D]; mask: [B, T] bool validity. Valid tokens are appended
+    compactly to `cache`, which is updated in place (k/v, scales, length);
+    returns (hidden [B, T, D], cache). Invalid positions produce garbage
+    hidden states; callers read the last valid position. (The JAX version's
+    pos_offset and lora arguments serve the speech decoder and training, which
+    are not ported yet.)"""
+    B, T, D = embeds.shape
+    H, Hkv, dk = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rep = H // Hkv
+    S = cache.k.shape[2]
+    dev = embeds.device
+
+    maski = mask.to(torch.int64)
+    rank = torch.cumsum(maski, dim=1) - 1                 # [B, T]
+    n_new = maski.sum(dim=1)                              # [B]
+    length = cache.length.to(torch.int64)
+    positions = length[:, None] + torch.clamp(rank, min=0)
+    # invalid tokens go to scratch slot S-1; the runtime keeps
+    # length + n_new <= S-1, so no valid query ever sees it
+    dest = torch.where(mask, positions, torch.full_like(positions, S - 1))
+
+    cos, sin = rotary_embed(positions.reshape(-1), dk, cfg.rope_theta)
+    cos = cos.reshape(B, T, dk)
+    sin = sin.reshape(B, T, dk)
+
+    quant = cache.k_scale is not None
+    if quant:
+        # query t sees slots [0, length + rank_t + 1); invalid queries none
+        qend = torch.where(mask, length[:, None] + rank + 1,
+                           torch.zeros_like(rank)).to(torch.int32)
+    else:
+        slot = torch.arange(S, device=dev)[None, None, :]
+        attn_mask = (slot < (length[:, None, None] + rank[:, :, None] + 1)) \
+            & mask[:, :, None]
+    batch_idx = torch.arange(B, device=dev)[:, None].expand(B, T)
+
+    x = embeds
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        h = rms_norm(lp["ln1"], x, cfg.rms_eps)
+        q = _apply_rot(linear(lp["q"], h).reshape(B, T, H, dk), cos, sin)
+        k = _apply_rot(linear(lp["k"], h).reshape(B, T, Hkv, dk), cos, sin)
+        v = linear(lp["v"], h).reshape(B, T, Hkv, dk)
+        if quant:
+            kq, ksc = quantize_kv_vectors(k)
+            vq, vsc = quantize_kv_vectors(v)
+            cache.k[i][batch_idx, dest] = kq
+            cache.v[i][batch_idx, dest] = vq
+            cache.k_scale[i][batch_idx, dest] = ksc
+            cache.v_scale[i][batch_idx, dest] = vsc
+            att = prefill_quant(q, cache.k[i], cache.k_scale[i], cache.v[i],
+                                cache.v_scale[i], qend)
+            att = att.reshape(B, T, H * dk).to(q.dtype)
+        else:
+            cache.k[i][batch_idx, dest] = k.to(cache.k.dtype)
+            cache.v[i][batch_idx, dest] = v.to(cache.v.dtype)
+            att = _gqa_attention(q, cache.k[i], cache.v[i], attn_mask, rep)
+        x = x + linear(lp["o"], att)
+        h2 = rms_norm(lp["ln2"], x, cfg.rms_eps)
+        x = x + linear(lp["down"], F.silu(linear(lp["gate"], h2)) * linear(lp["up"], h2))
+    x = rms_norm(params["final_norm"], x, cfg.rms_eps)
+    cache.length.add_(n_new.to(cache.length.dtype))
+    return x, cache
+
+
+def roll_kv(cfg: LLMConfig, kv: KVCache, prefix_len: torch.Tensor,
+            keep_recent, do_roll: torch.Tensor) -> KVCache:
+    """Sliding-window KV compaction with a pinned prefix, per row, IN PLACE.
+
+    For rows where do_roll: keep slots [0, prefix_len) (the role prefill, the
+    attention sink) and move the most recent `keep_recent` entries down to
+    [prefix_len, prefix_len + W), re-rotating K by the uniform shift so the
+    kept entries sit at within-cache positions (StreamingLLM eviction); slots
+    past the new length are zeroed. An int8 cache dequantizes, rotates and
+    requantizes K; V and its scales move losslessly. One layer at a time, so
+    the f32 transient is one layer's worth. Other rows are untouched."""
+    Lc, B, S, Hkv, dk = kv.k.shape
+    dev = kv.k.device
+    length = kv.length.to(torch.int64)
+    prefix_len = torch.as_tensor(prefix_len, device=dev).to(torch.int64)
+    keep = torch.as_tensor(keep_recent, device=dev).to(torch.int64)
+    do_roll = torch.as_tensor(do_roll, device=dev).bool()
+    W = torch.minimum(torch.clamp(keep, min=0), length - prefix_len)   # [B]
+    start = length - W
+    s_idx = torch.arange(S, device=dev)[None, :]
+    in_prefix = s_idx < prefix_len[:, None]
+    src = torch.where(in_prefix, s_idx, s_idx - prefix_len[:, None] + start[:, None])
+    src = torch.clamp(src, 0, S - 1)
+    delta = torch.where(in_prefix, torch.zeros_like(src),
+                        (prefix_len - start)[:, None].expand(B, S))
+
+    cos, sin = rotary_embed(delta.reshape(-1), dk, cfg.rope_theta)
+    cos = cos.reshape(B, S, 1, dk)
+    sin = sin.reshape(B, S, 1, dk)
+
+    new_len = prefix_len + W
+    valid = s_idx < new_len[:, None]
+    sel = (do_roll[:, None] & valid)[:, :, None, None]                # [B,S,1,1]
+    zero = (do_roll[:, None] & ~valid)[:, :, None, None]
+    idx4 = src[:, :, None, None].expand(B, S, Hkv, dk)
+    idx3 = src[:, :, None].expand(B, S, Hkv)
+
+    def rot(x):
+        d2 = dk // 2
+        r = torch.cat([-x[..., d2:], x[..., :d2]], dim=-1)
+        return (x * cos + r * sin).to(x.dtype)
+
+    def put(dst, new, sel_, zero_):
+        dst.copy_(torch.where(sel_, new, torch.where(zero_, torch.zeros_like(dst), dst)))
+
+    for i in range(Lc):
+        if kv.k_scale is None:
+            put(kv.k[i], rot(torch.gather(kv.k[i], 1, idx4)), sel, zero)
+            put(kv.v[i], torch.gather(kv.v[i], 1, idx4), sel, zero)
+        else:
+            kf = torch.gather(kv.k[i], 1, idx4).float() * \
+                torch.gather(kv.k_scale[i], 1, idx3)[..., None]
+            kq2, ks2 = quantize_kv_vectors(rot(kf))
+            vq2 = torch.gather(kv.v[i], 1, idx4)
+            vs2 = torch.gather(kv.v_scale[i], 1, idx3)
+            put(kv.k[i], kq2, sel, zero)
+            put(kv.v[i], vq2, sel, zero)
+            put(kv.k_scale[i], ks2, sel[..., 0], zero[..., 0])
+            put(kv.v_scale[i], vs2, sel[..., 0], zero[..., 0])
+    kv.length.copy_(torch.where(do_roll, new_len, length).to(kv.length.dtype))
+    return kv
+
+
+def last_valid_index(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the last valid token per row of a [B, T] mask (-1 if none)."""
+    T = mask.shape[1]
+    idx = torch.arange(T, device=mask.device)[None, :].expand_as(mask)
+    return torch.where(mask, idx, torch.full_like(idx, -1)).amax(dim=1)

@@ -1,0 +1,338 @@
+"""Continuous-batching serving engine for the duplex dialog-state tick
+(counterpart of ServingEngine in freeze_omni_tpu/runtime/engine.py).
+
+One resident model serves every session; per-session caches live batched in a
+`SessionStore`. Each tick runs the pending 224 ms chunks of both identities
+(user and system, with their own encoder/adapter weights) through ONE fused
+LLM prefill (audio_llm.recognize_step_dual) when both have work; sessions
+without a chunk pass through untouched. A session nearing KV capacity is
+rolled (qwen2.roll_kv) before the tick, keeping its role prefix and recent
+window.
+
+Left out of the port for now: mesh sharding, buffer donation, session
+export/import and the response paths (respond*, continue_segments*).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import SystemConfig
+from ..models import audio_llm, qwen2
+from ..utils.device import resolve_device
+from ..utils.tokenizer import ByteTokenizer, ChatTemplate
+from .session import SessionStore
+
+IDENTITIES = ("user", "system")
+
+
+class CapacityError(RuntimeError):
+    """Device memory exhausted by session state; carries the active-session
+    count so a server can refuse cleanly instead of crashing."""
+
+    def __init__(self, msg: str, active_sessions: Optional[int] = None):
+        super().__init__(msg)
+        self.active_sessions = active_sessions
+
+
+class _Core:
+    """Tokenizer, chat template, parameters and the cached prefix
+    embeddings and role prefills (the pieces of pipeline._Core the tick
+    needs)."""
+
+    def __init__(self, cfg: SystemConfig, params: Optional[dict], tokenizer,
+                 seed: int, llm_dtype, device: torch.device):
+        self.cfg = cfg
+        self.acfg = cfg.audio_llm
+        self.device = device
+        self.tokenizer = tokenizer or ByteTokenizer(cfg.audio_llm.llm.vocab_size)
+        self.chat = ChatTemplate(self.tokenizer)
+        if params is None:
+            params = audio_llm.init_params(self.acfg, seed, device,
+                                           llm_dtype=llm_dtype)
+        self.params = params
+        # chat-template prefix embeddings (audioLLM.py:245-251)
+        self.user_prefix_embeds = qwen2.embed_tokens(
+            params["llm"], self._ids(self.chat.user_prefix_ids))
+        self.system_prefix_embeds = qwen2.embed_tokens(
+            params["llm"], self._ids(self.chat.system_prefix_ids))
+
+    def _ids(self, ids) -> torch.Tensor:
+        return torch.tensor(ids, dtype=torch.int64, device=self.device)
+
+    def role_kv(self, role: str) -> qwen2.KVCache:
+        """Prefill the role prompt into a fresh batch-1 float cache whose
+        dtype follows the activation dtype embed_tokens emits."""
+        ids = self._ids(self.chat.role_prompt_ids(role))[None]
+        kv = qwen2.init_cache(self.acfg.llm, 1,
+                              dtype=self.user_prefix_embeds.dtype,
+                              device=self.device)
+        return audio_llm.prefill_tokens(self.params, self.acfg, ids, kv)
+
+
+class PendingTick:
+    """Handle for a dispatched but undelivered tick. `deliver()` waits for the
+    user state predictions, fires per-session callbacks and returns
+    {'user': {slot: {'state_1', 'state_2'}}}. Deliver at most once; a second
+    call returns {}."""
+
+    __slots__ = ("_engine", "_pending", "_probs")
+
+    def __init__(self, engine: "ServingEngine", pending, probs):
+        self._engine = engine
+        self._pending = pending
+        self._probs = probs
+
+    def deliver(self) -> Dict[str, Dict[int, dict]]:
+        results: Dict[str, Dict[int, dict]] = {}
+        pending, self._pending = self._pending, None
+        probs, self._probs = self._probs, None
+        if pending:
+            self._engine._deliver_user(results, pending, probs)
+        return results
+
+
+class ServingEngine:
+    def __init__(self, cfg: SystemConfig, params: Optional[dict] = None,
+                 tokenizer=None, seed: int = 0, kv_dtype=torch.float32,
+                 device=None):
+        """params: a tree already on `device` (weights.from_jax, or
+        audio_llm.init_params); None draws random float weights from `seed`.
+        device=None means the CUDA card and raises without one."""
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.core = _Core(cfg, params, tokenizer, seed, kv_dtype, self.device)
+        if kv_dtype == torch.bfloat16:
+            # serving in half precision: the frontend follows
+            self.core.params = audio_llm.cast_frontend(self.core.params, kv_dtype)
+        self.store = SessionStore(cfg.audio_llm, cfg.serving.max_sessions,
+                                  kv_dtype, cfg.serving.kv_quant_bits,
+                                  self.device)
+        # RLock: the callbacks fired inside a roll may re-enter the engine
+        self._lock = threading.RLock()
+        # pending chunk per (identity, slot): (fbank [1, T, 80], is_sl)
+        self._pending: Dict[str, Dict[int, Tuple[np.ndarray, bool]]] = {
+            i: {} for i in IDENTITIES}
+        self._callbacks: Dict[int, Callable[[str, dict], None]] = {}
+        self._role_kv_cache: Dict[str, qwen2.KVCache] = {}
+        # host mirror of kv.length, advanced exactly at submit time so the
+        # roll check needs no device read per tick
+        self._len_host: Optional[np.ndarray] = None
+        # worst-case KV growth of one identity's step: chat prefix + the
+        # adapter tokens of one gating chunk, from the model's own arithmetic
+        self._step_append_bound = int(max(
+            self.core.user_prefix_embeds.shape[0],
+            self.core.system_prefix_embeds.shape[0])) + \
+            audio_llm.chunk_tokens(cfg.duplex.gating.frames_per_step)
+
+    # ------------------------------------------------------------------
+    # session management
+    # ------------------------------------------------------------------
+
+    def open_session(self, sid: str, role: Optional[str] = None,
+                     on_prediction: Optional[Callable] = None) -> int:
+        try:
+            return self._open_session(sid, role, on_prediction)
+        except torch.cuda.OutOfMemoryError as e:
+            self.close_session(sid)
+            raise CapacityError(
+                f"device memory exhausted opening session {sid!r} "
+                f"({self.num_active} active)",
+                active_sessions=self.num_active) from e
+
+    def _open_session(self, sid: str, role: Optional[str],
+                      on_prediction: Optional[Callable]) -> int:
+        role = role or self.cfg.duplex.default_prompt
+        if role not in self._role_kv_cache:
+            kv = self.core.role_kv(role)
+            if self.store.kv_quant_bits is not None:
+                # the pool rows are int8: quantize the float role prefill
+                kv = qwen2.quantize_cache(kv, self.store.kv_quant_bits)
+            self._role_kv_cache[role] = kv
+        with self._lock:
+            existing = self.store.has(sid)  # an open sid keeps its row
+            slot = self.store.alloc(sid, self._role_kv_cache[role])
+            if on_prediction is not None:
+                self._callbacks[slot] = on_prediction
+            if self._len_host is not None:
+                self._len_host[slot] = self.store.kv_length(slot) if existing \
+                    else self.store.prefix_len[slot]
+        return slot
+
+    def close_session(self, sid: str) -> None:
+        """Idempotent: closing an unknown or closed sid is a no-op."""
+        with self._lock:
+            if not self.store.has(sid):
+                return
+            slot = self.store.slot_of(sid)
+            self._callbacks.pop(slot, None)
+            for i in IDENTITIES:
+                self._pending[i].pop(slot, None)
+            self.store.free(sid)
+
+    @property
+    def num_active(self) -> int:
+        return len(self.store.active_sids)
+
+    # ------------------------------------------------------------------
+    # serving
+    # ------------------------------------------------------------------
+
+    def submit_chunk(self, sid: str, identity: str, fbank_chunk: np.ndarray,
+                     is_sl: bool) -> None:
+        """fbank_chunk: [1, T_f, 80]. One chunk per (session, identity, tick);
+        a second submit before the tick overwrites."""
+        chunk = np.asarray(fbank_chunk, np.float32)
+        with self._lock:
+            slot = self.store.slot_of(sid)
+            pending = self._pending[identity]
+            if pending:
+                prev = next(iter(pending.values()))[0]
+                if prev.shape[1:] != chunk.shape[1:]:
+                    raise ValueError(
+                        f"mixed chunk shapes in one tick: pending {prev.shape} "
+                        f"vs submitted {chunk.shape} for sid={sid!r} "
+                        f"identity={identity!r}")
+            pending[slot] = (chunk, bool(is_sl))
+
+    def _gather_pending(self, identity: str):
+        """Drain one identity's pending chunks into padded batch arrays."""
+        with self._lock:
+            pending = self._pending[identity]
+            self._pending[identity] = {}
+        if not pending:
+            return None
+        B = self.store.max_sessions
+        first = next(iter(pending.values()))[0]
+        chunks = np.zeros((B, first.shape[1], first.shape[2]), np.float32)
+        active = np.zeros((B,), bool)
+        is_sl = np.zeros((B,), bool)
+        for slot, (c, sl) in pending.items():
+            chunks[slot] = c[0]
+            active[slot] = True
+            is_sl[slot] = sl
+        return pending, chunks, active, is_sl
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def tick(self) -> Dict[str, Dict[int, dict]]:
+        """Run the pending work of both identities and deliver the user
+        predictions: {'user': {slot: {'state_1', 'state_2'}}}."""
+        return self.tick_submit().deliver()
+
+    def tick_submit(self) -> PendingTick:
+        """Enqueue the pending work of both identities (fused into one LLM
+        pass when both have chunks) without waiting for the results. The
+        KV-length mirror advances exactly here."""
+        try:
+            return self._tick_submit()
+        except torch.cuda.OutOfMemoryError as e:
+            raise CapacityError(
+                f"device memory exhausted in the serving tick "
+                f"({self.num_active} active sessions)",
+                active_sessions=self.num_active) from e
+
+    def _tick_submit(self) -> PendingTick:
+        self._maybe_roll_kv()
+        user = self._gather_pending("user")
+        system = self._gather_pending("system")
+        acfg = self.cfg.audio_llm
+        params = self.core.params
+        p_user = int(self.core.user_prefix_embeds.shape[0])
+        p_system = int(self.core.system_prefix_embeds.shape[0])
+
+        if user is not None and system is not None and \
+                user[1].shape == system[1].shape:
+            with self._lock, torch.no_grad():
+                probs, _ = audio_llm.recognize_step_dual(
+                    params, acfg, self._dev(user[1]), self._dev(user[3]),
+                    self._dev(user[2]), self._dev(system[1]),
+                    self._dev(system[3]), self._dev(system[2]),
+                    self.core.user_prefix_embeds,
+                    self.core.system_prefix_embeds, self.store.caches)
+            self._advance_mirror(user[2], user[3], p_user,
+                                 audio_llm.chunk_tokens(user[1].shape[1]))
+            self._advance_mirror(system[2], system[3], p_system,
+                                 audio_llm.chunk_tokens(system[1].shape[1]))
+            return PendingTick(self, user[0], probs)
+
+        user_pending, user_probs = None, None
+        for identity, batch in (("user", user), ("system", system)):
+            if batch is None:
+                continue
+            pending, chunks, active, is_sl = batch
+            prefix = (self.core.user_prefix_embeds if identity == "user"
+                      else self.core.system_prefix_embeds)
+            with self._lock, torch.no_grad():
+                probs, _ = audio_llm.recognize_step(
+                    params, acfg, identity, self._dev(chunks), self._dev(is_sl),
+                    prefix, self.store.caches, active=self._dev(active))
+            self._advance_mirror(active, is_sl,
+                                 p_user if identity == "user" else p_system,
+                                 audio_llm.chunk_tokens(chunks.shape[1]))
+            if identity == "user":
+                user_pending, user_probs = pending, probs
+        return PendingTick(self, user_pending, user_probs)
+
+    def _advance_mirror(self, active, is_sl, prefix_tokens: int,
+                        chunk_toks: int) -> None:
+        """Advance the host KV-length mirror by the exact appendage of one
+        step: active rows gain the chunk's tokens plus the chat prefix when
+        the chunk starts an IPU (qwen2.forward's n_new)."""
+        with self._lock:
+            if self._len_host is None:
+                return
+            add = np.where(active, chunk_toks + prefix_tokens * np.asarray(is_sl, int), 0)
+            self._len_host = np.minimum(self._len_host + add,
+                                        self.store.kv_capacity).astype(np.int32)
+
+    def _deliver_user(self, results, pending, probs):
+        probs = probs.cpu().numpy()
+        out = {}
+        for slot in pending:
+            pred = {"state_1": float(probs[slot, 1]),
+                    "state_2": float(probs[slot, 2])}
+            out[slot] = pred
+            cb = self._callbacks.get(slot)
+            if cb is not None:
+                cb("user", pred)
+        results["user"] = out
+
+    def _maybe_roll_kv(self) -> None:
+        """Sliding-window KV (qwen2.roll_kv): sessions within kv_margin of
+        capacity keep their pinned role prefix plus the most recent window.
+        The margin is floored at the worst single-tick appendage (both
+        identities' prefix + chunk) and at 64: beyond it, forward's
+        length + n_new <= S-1 invariant would break."""
+        margin = max(self.cfg.serving.kv_margin, 2 * self._step_append_bound, 64)
+        cap = self.store.kv_capacity
+        with self._lock:
+            if self._len_host is None:  # first use: one authoritative read
+                self._len_host = self.store.caches.kv.length.cpu().numpy() \
+                    .astype(np.int32)
+            lengths = self._len_host.copy()
+        need = lengths > cap - margin
+        if not need.any():
+            return
+        # post-roll length targets half the usable window
+        target = (cap - margin) // 2
+        keep = np.minimum(np.maximum(target - self.store.prefix_len, 16),
+                          self.cfg.serving.kv_keep_recent).astype(np.int32)
+        with self._lock, torch.no_grad():
+            qwen2.roll_kv(self.cfg.audio_llm.llm, self.store.caches.kv,
+                          self._dev(self.store.prefix_len.astype(np.int64)),
+                          self._dev(keep.astype(np.int64)), self._dev(need))
+        rolled = self.store.prefix_len + np.minimum(
+            keep, lengths - self.store.prefix_len)
+        with self._lock:
+            self._len_host = np.where(need, rolled, lengths).astype(np.int32)
+        for slot in np.nonzero(need)[0]:
+            cb = self._callbacks.get(int(slot))
+            if cb is not None:
+                cb("kv_roll", {"kept_recent": int(keep[slot]),
+                               "prefix": int(self.store.prefix_len[slot])})

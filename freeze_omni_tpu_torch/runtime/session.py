@@ -1,0 +1,111 @@
+"""Session store: batched per-user caches with slot allocation (counterpart of
+freeze_omni_tpu/runtime/session.py).
+
+One resident model serves every session; all sessions' caches live batched
+along a leading session axis in ONE preallocated `SessionCaches`, and a slot
+allocator maps session ids to rows. Where the JAX store rebuilds the pytree
+functionally, this one writes rows in place.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import AudioLLMConfig
+from ..models import adapter as adapter_mod
+from ..models import audio_llm, qwen2
+from ..models import encoder as encoder_mod
+
+_ENC_AXES = encoder_mod.EncoderState(k_cache=1, v_cache=1, valid=0,
+                                     pe_index=0, ffn_cache=1)
+_ADP_AXES = adapter_mod.AdapterState(c1=0, c2=0)
+_KV_AXES = qwen2.KVCache(k=1, v=1, length=0, k_scale=1, v_scale=1)
+BATCH_AXES = audio_llm.SessionCaches(enc_user=_ENC_AXES, adp_user=_ADP_AXES,
+                                     enc_system=_ENC_AXES, adp_system=_ADP_AXES,
+                                     kv=_KV_AXES)
+
+
+def map_rows(fn, axes, *trees):
+    """Apply fn(batch_axis, *leaves) over matching leaves of NamedTuple trees
+    (None leaves stay None) and rebuild the structure."""
+    if isinstance(axes, tuple):
+        return type(axes)(*[map_rows(fn, a, *[t[i] for t in trees])
+                            for i, a in enumerate(axes)])
+    if trees[0] is None:
+        return None
+    return fn(axes, *trees)
+
+
+class SessionStore:
+    def __init__(self, cfg: AudioLLMConfig, max_sessions: int,
+                 kv_dtype=torch.float32, kv_quant_bits: Optional[int] = None,
+                 device=None):
+        """All caches are preallocated on `device` (None: the CUDA card;
+        raises without one)."""
+        self.cfg = cfg
+        self.max_sessions = max_sessions
+        self.kv_quant_bits = kv_quant_bits
+        self.caches = audio_llm.init_session(cfg, max_sessions, kv_dtype,
+                                             kv_quant_bits, device)
+        self._free: List[int] = list(range(max_sessions))
+        self._slots: Dict[str, int] = {}
+        # pinned role-prefill length per slot (the sliding-KV "sink" prefix)
+        self.prefix_len = np.zeros((max_sessions,), np.int32)
+
+    def alloc(self, sid: str, role_kv: Optional[qwen2.KVCache] = None) -> int:
+        """Claim a slot (an open sid keeps its slot), zero its row and
+        optionally seed its LLM KV row from a batch-1 role prefill."""
+        if sid in self._slots:
+            return self._slots[sid]
+        if not self._free:
+            raise RuntimeError("no free session slots")
+        slot = self._free.pop(0)
+        self._slots[sid] = slot
+        self.reset_slot(slot, role_kv)
+        return slot
+
+    def free(self, sid: str) -> None:
+        slot = self._slots.pop(sid, None)
+        if slot is not None:
+            self._free.append(slot)
+
+    def slot_of(self, sid: str) -> int:
+        return self._slots[sid]
+
+    def has(self, sid: str) -> bool:
+        return sid in self._slots
+
+    @property
+    def active_sids(self):
+        return list(self._slots)
+
+    def reset_slot(self, slot: int, role_kv: Optional[qwen2.KVCache] = None) -> None:
+        """Zero the slot's row in every cache; seed its KV from role_kv."""
+        map_rows(lambda ax, t: t.narrow(ax, slot, 1).zero_(), BATCH_AXES,
+                 self.caches)
+        self.prefix_len[slot] = 0
+        if role_kv is not None:
+            map_rows(lambda ax, full, row: full.narrow(ax, slot, 1).copy_(row),
+                     _KV_AXES, self.caches.kv, role_kv)
+            self.prefix_len[slot] = int(role_kv.length[0])
+
+    def kv_length(self, slot: int) -> int:
+        return int(self.caches.kv.length[slot])
+
+    @property
+    def kv_capacity(self) -> int:
+        """Max KV slots per session (the S of the [L, B, S, ...] cache)."""
+        return int(self.caches.kv.k.shape[2])
+
+    def gather_slot(self, slot: int) -> audio_llm.SessionCaches:
+        """A batch-1 copy of one session's caches."""
+        return map_rows(lambda ax, t: t.narrow(ax, slot, 1).clone(),
+                        BATCH_AXES, self.caches)
+
+    def scatter_slot(self, slot: int, row: audio_llm.SessionCaches) -> None:
+        """Write a batch-1 caches tree back into the slot, in place."""
+        map_rows(lambda ax, full, r: full.narrow(ax, slot, 1).copy_(r),
+                 BATCH_AXES, self.caches, row)

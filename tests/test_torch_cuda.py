@@ -1,0 +1,115 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions,
+on the card.
+
+Every test here is marked `cuda` and skips without a CUDA device (decided
+inside the `cuda` fixture, never at import). The machine with the card has no
+JAX, so this file imports none; run it there with
+
+    pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(--noconftest: tests/conftest.py configures JAX for the CPU suite).
+Tolerances: f32 activations compare at 1e-4 (the kernels change only the
+order of f32 sums and apply the scales after the dot instead of before);
+bf16 activations at rtol = atol = 2e-2 (one bf16 rounding of the output).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from freeze_omni_tpu_torch.ops import attention as att
+from freeze_omni_tpu_torch.ops import quant_matmul as qm
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the H100 with "
+                    "`pytest --noconftest -m cuda tests/test_torch_cuda.py`")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qm_inputs(N, K, O, dtype, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((N, K), generator=g).to(dtype)
+    w_q = torch.randint(-127, 128, (K, O), generator=g, dtype=torch.int8)
+    scale = (torch.rand(O, generator=g) + 0.5) / (127.0 * K ** 0.5)
+    return x.to(device), w_q.to(device), scale.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,K,O", [
+    (1, 3584, 512), (89, 3584, 3584), (232, 3584, 18944), (232, 18944, 3584),
+    (1856, 3584, 512),
+    (7, 200, 131),     # ragged K and O (O % 4 != 0: scalar weight loads)
+    (65, 96, 130),     # ragged N just past one row block
+])
+def test_quant_matmul_matches_plain(cuda, dtype, N, K, O):
+    x, w_q, scale = _qm_inputs(N, K, O, dtype, cuda)
+    before = qm.quant_matmul.launches
+    y = qm.quant_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert qm.quant_matmul.launches == before + 1
+    ref = qm.quant_matmul_reference(x, w_q, scale)
+    assert y.dtype == dtype and y.shape == (N, O)
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _pq_inputs(B, T, H, Hkv, dk, S, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(B, T, H, dk).astype(np.float32)).to(dtype)
+    k_q = torch.from_numpy(rng.randint(-127, 128, (B, S, Hkv, dk)).astype(np.int8))
+    v_q = torch.from_numpy(rng.randint(-127, 128, (B, S, Hkv, dk)).astype(np.int8))
+    k_s = torch.from_numpy(0.01 + rng.rand(B, S, Hkv).astype(np.float32) * 0.05)
+    v_s = torch.from_numpy(0.01 + rng.rand(B, S, Hkv).astype(np.float32) * 0.05)
+    # ragged visibility as in a tick: per-row lengths, some invalid queries
+    # (qend = 0) and one row with no valid query at all
+    lengths = rng.randint(S // 8, S - T - 1, size=B)
+    qend = lengths[:, None] + np.arange(1, T + 1)[None, :]
+    qend[rng.rand(B, T) < 0.3] = 0
+    qend[-1] = 0
+    # the scratch slot S-1 may hold anything: it must never reach a product
+    k_s[:, S - 1] = float("nan")
+    v_s[:, S - 1] = float("inf")
+    t = [x.to(device) for x in (q, k_q, k_s, v_q, v_s)]
+    return (*t, torch.from_numpy(qend.astype(np.int32)).to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,Hkv,dk,S", [
+    (8, 29, 28, 4, 128, 1024), (8, 29, 28, 4, 128, 2048),
+    (2, 89, 28, 4, 128, 1024),   # the role prefill
+    (3, 6, 8, 2, 64, 100),       # tiny widths, S not a multiple of the tile
+])
+def test_prefill_quant_matches_plain(cuda, dtype, B, T, H, Hkv, dk, S):
+    q, k_q, k_s, v_q, v_s, qend = _pq_inputs(B, T, H, Hkv, dk, S, dtype, cuda)
+    before = att.prefill_quant.launches
+    out = att.prefill_quant(q, k_q, k_s, v_q, v_s, qend)
+    torch.cuda.synchronize()
+    assert att.prefill_quant.launches == before + 1
+    ref = att.prefill_quant_reference(q, k_q, k_s, v_q, v_s, qend)
+    valid = qend > 0
+    assert torch.isfinite(out.float()).all()
+    assert (out[~valid] == 0).all()
+    tol = TOL[dtype]
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(),
+                               rtol=tol, atol=tol)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x, w_q, scale = _qm_inputs(4, 64, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.quant_matmul(x.t().contiguous().t(), w_q, scale)
+    with pytest.raises(TypeError):
+        qm.quant_matmul(x.half(), w_q, scale)
+    q, k_q, k_s, v_q, v_s, qend = _pq_inputs(1, 2, 4, 2, 32, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        att.prefill_quant(q, k_q, k_s, v_q, v_s, qend)
+    with pytest.raises(TypeError, match="int32"):
+        att.prefill_quant(q, k_q, k_s, v_q, v_s, qend.long())
