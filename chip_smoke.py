@@ -3,39 +3,71 @@
 
     python3 chip_smoke.py
 
-Runs the duplex dialog-state serving tick, the port's main path, on the card
-with no fallback anywhere; any failing phase raises and the script exits
-nonzero without printing a result. Phases:
+Runs the port's two serving paths on the card with no fallback anywhere: the
+duplex dialog-state tick and the batched spoken response (text decode ->
+speech decoder -> codec -> PCM). Any failing phase raises and the script
+exits nonzero without printing a result. Phases:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
-2. build: every kernel of the path from freeze_omni_tpu_torch/csrc with nvcc
-   for sm_90a, all sources at once (ptxas register/spill report printed);
-3. kernel parity at flagship shapes in bf16: K1 (int8 weight-only matmul) at
-   every projection shape for N in {1, 89, 232, 1856}; K2 (int8-KV prefill
+2. build: every kernel of both paths from freeze_omni_tpu_torch/csrc with
+   nvcc for sm_90a, one nvcc per source, all started together (ptxas
+   register/spill report printed);
+3. kernel parity, each kernel against its plain PyTorch version on the same
+   inputs: K1 (int8 weight-only matmul) at every projection shape for N in
+   {1, 89, 232, 1856}, bf16, rtol = atol = 2e-2; K2 (int8-KV prefill
    attention) at B=8, T=29, H=28, Hkv=4, dk=128, S in {1024, 2048} with
-   ragged qend including 0 and a non-finite scale in slot S-1. Each kernel
-   against its plain PyTorch version on the same inputs, rtol = atol = 2e-2
-   on valid rows (one bf16 rounding of the output); qend=0 rows must be
-   finite;
-4. slice parity at full width and reduced depth: the flagship widths with 2
-   LLM layers, int8 weights and int8 KV, f32 activations; the same weights
-   and fbank windows through the engine on the card (kernels) and on the CPU
-   (plain versions) for a few dual ticks; probabilities within 5e-3 (int8 KV
-   re-quantization flips on 1-ulp activation differences), decisions at the
-   0.5 threshold and KV lengths identical. TF32 is off for this phase;
-5. the main path at full width and depth: flagship_system() (Qwen2-7B
+   ragged qend including 0 and a non-finite scale in slot S-1, bf16, 2e-2;
+   K3 and K4 (float-cache decode attention) at the LLM shape B=8, H=28,
+   Hkv=4, dk=128, S=1024 in bf16 (2e-2: one bf16 rounding of the output)
+   and the speech decoder's shape B=8, H=Hkv=14, dk=64, S in {1265, 2048}
+   in f32 with TF32 off (1e-4: f32 sums in another order), with lengths
+   0, 1, 255, 256, 257 and S-1 among the rows and NaN in slot S-1 and in
+   every slot past a row's length. Valid rows are compared; masked rows
+   (qend = 0, length = 0) must be finite;
+4. tick parity at full width and reduced depth: the flagship widths with 2
+   LLM layers, int8 weights and int8 KV; the same weights and fbank windows
+   through the engine on the card (kernels) and on the CPU (plain versions)
+   for a few dual ticks; probabilities within 5e-3 (int8 KV re-quantization
+   flips on 1-ulp activation differences), decisions at the 0.5 threshold
+   and KV lengths identical. TF32 is off for this phase and the next;
+5. response parity, card against CPU, on the engines of phase 4 with the
+   flagship speech decoder and codec (seeded random weights), greedy text
+   and codec sampling: respond_fast_many for both sessions, one
+   continue_segments round, then one BatchedTTS sentence to its end (the
+   sentence budget cut to 120 codec tokens). The card records every sampled
+   token; the CPU replays them teacher-forced and checks at each draw that
+   the card's token is its own argmax, or else that it loses to the argmax
+   by at most 5% of the row's largest logit (a near-tie: with int8 weights
+   the text activations are bf16, and random weights give near-ties that
+   one bf16 rounding can flip). The BatchedTTS sentence gets the same
+   inputs on both. PCM within 1e-3 (same codec tokens; ~30 stacked f32
+   convolutions that cuDNN may compute with FFT or Winograd algorithms),
+   continue hiddens within 5% of each row's largest magnitude (bf16), KV
+   lengths equal;
+6. the tick path at full width and depth: flagship_system() (Qwen2-7B
    widths, 28 layers) with int8 weights from the torch-side random init, a
    bf16 frontend, kv_quant_bits=8, max_kv_len=1024 and 8 sessions with the
    default role; full-duplex dual ticks from dev wavs through the
    GatingChunker, each tick gating that tick's audio chunk of all 16
-   streams, until a KV roll has fired and at least 100 ticks ran. The
-   kernels' launch counts are zeroed just before and read just after; both
-   must be > 0. Prints tick p50/p90 (host frontend + engine.tick, and each
-   alone) against the 224 ms budget and the peak device memory;
-6. kernel times with CUDA events at the main path's shapes, each beside its
+   streams, until a KV roll has fired and at least 100 ticks ran. All
+   launch counts are zeroed just before and read just after; K1 and K2 must
+   be > 0. Prints tick p50/p90 (host frontend + engine.tick, and each alone)
+   against the 224 ms budget and the peak device memory;
+7. the response path at full width and depth, on the engine of phase 6
+   (8 sessions with real dialog context) and the flagship speech decoder
+   and codec (seeded random weights), as the duplex service drives it:
+   respond_fast_many for all 8 sessions at once, then continue_segments
+   rounds of 16 tokens up to 64 or eod, each round's sentences through
+   split_sentences + post_process + engine.embed_tokens into a BatchedTTS
+   pool of 8, stepped until every sentence has finished. Launch counts are
+   zeroed just before and read just after; K1, K2 and K4 must be > 0. Every
+   PCM chunk must be finite with |pcm| <= 1, and every session must get
+   first-response audio and at least one pooled sentence;
+8. kernel times with CUDA events at the paths' shapes, each beside its
    bound: max(bytes / 3.35 TB/s, operations / 989 TFLOP/s), counting each
-   input byte once and, for K2, only the cache slots this run's qend makes
-   visible. K1's entry sums one layer's seven projection calls at N = 232.
+   input byte once and, for K2-K4, only the cache slots this run makes
+   visible; beside the plain version's time and, where one PyTorch call
+   computes the same function, that call's time.
 
 The last lines: the nvidia-smi line, one {"kernels": [...]} JSON line and
 the device JSON line.
@@ -43,6 +75,7 @@ the device JSON line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -52,6 +85,11 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 BUDGET_MS = 224.0              # one gating chunk of audio
+TTS_MAX_TOKENS = 200           # codec tokens per pooled sentence (default 1000)
+PARITY_TTS_MAX_TOKENS = 120
+TIE_FRAC = 0.05                # near-tie margin of the teacher-forced replay
+PCM_TOL = 1e-3
+HIDDEN_ROW_TOL = 0.05
 
 
 def log(*a):
@@ -61,6 +99,8 @@ def log(*a):
 def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
     return tree.to(device)
 
 
@@ -91,6 +131,69 @@ def max_violation(out, ref, tol):
     out, ref = out.float(), ref.float()
     err = (out - ref).abs()
     return float(err.max()), bool((err <= tol + tol * ref.abs()).all())
+
+
+def pct(a):
+    import numpy as np
+
+    return f"p50 {np.percentile(a, 50):.2f} ms, p90 {np.percentile(a, 90):.2f} ms"
+
+
+def kernel_wrappers():
+    from freeze_omni_tpu_torch.ops import attention as att
+    from freeze_omni_tpu_torch.ops import quant_matmul as qm
+
+    return {"quant_matmul": qm.quant_matmul, "prefill_quant": att.prefill_quant,
+            "decode_attention": att.decode_attention,
+            "decode_attention_blocked": att.decode_attention_blocked}
+
+
+def zero_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def fixed_sentences():
+    """The committed tiny system's sentences: the text of every synthesized
+    sentence (random-weight text ids are almost all >= 256, which the byte
+    tokenizer drops, so their own text would be empty)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "freeze_omni_tpu", "assets", "tiny_s2s", "sentences.txt")
+    with open(path, encoding="utf-8") as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def tts_params(cfg, seed):
+    """Flagship speech decoder + codec (decode half), seeded random f32
+    weights drawn on the card."""
+    import torch
+
+    from freeze_omni_tpu_torch.models import codec
+    from freeze_omni_tpu_torch.models import speech_decoder as sd
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"decoder": sd.init_params(cfg.tts.decoder, g, device="cuda"),
+            "codec": codec.init_params(cfg.tts.codec, g, device="cuda")}
+
+
+def sentence_inputs(engine, text, hids):
+    """A sentence's speech-decoder inputs as the service builds them
+    (service._prepare_sentence): post_process'd text -> ids -> LLM
+    embeddings folded to the decoder width, and the sentence's own text
+    hiddens folded the same way as the prefix."""
+    import numpy as np
+
+    from freeze_omni_tpu_torch.pipeline import post_process
+
+    idim = engine.cfg.tts.decoder.idim
+    ids = engine.core.tokenizer.encode(post_process(text))
+    hidden = engine.embed_tokens(ids).reshape(-1, idim)[None]
+    prefix = np.concatenate(hids, axis=1).astype(np.float32).reshape(-1, idim)[None]
+    return hidden, prefix
 
 
 class Feed:
@@ -160,6 +263,67 @@ def submit_tick(engines, sids, feeds, tick):
                     engine.submit_chunk(sid, ident, *item)
 
 
+class SamplingTape:
+    """Every token the response path samples, in call order. Attached with
+    replay=False (on the card) it records the sampler's draws; attached with
+    replay=True (on the CPU) it feeds the recorded tokens back instead of
+    sampling (teacher forcing) and checks each against the CPU's own argmax:
+    equal, or a near-tie within TIE_FRAC of the row's largest |logit|."""
+
+    def __init__(self):
+        self.tokens = []
+        self.pos = 0
+        self.stats = {k: {"draws": 0, "flips": 0, "worst_gap": 0.0}
+                      for k in ("text", "codec")}
+
+    @contextlib.contextmanager
+    def attached(self, replay: bool):
+        from freeze_omni_tpu_torch.models import audio_llm
+        from freeze_omni_tpu_torch.models import speech_decoder as sd
+
+        saved = (audio_llm._sample, sd.sample_top_k)
+        audio_llm._sample = self._wrap("text", saved[0], replay)
+        sd.sample_top_k = self._wrap("codec", saved[1], replay)
+        try:
+            yield self
+        finally:
+            audio_llm._sample, sd.sample_top_k = saved
+
+    def _wrap(self, kind, sample, replay):
+        import torch
+
+        def record(gen, logits, arg):
+            tok = sample(gen, logits, arg)
+            self.tokens.append((kind, tok.cpu()))
+            return tok
+
+        def force(gen, logits, arg):
+            want_kind, want = self.tokens[self.pos]
+            self.pos += 1
+            if want_kind != kind or want.shape[0] != logits.shape[0]:
+                raise AssertionError(f"draw {self.pos}: the CPU samples {kind} "
+                                     f"where the card sampled {want_kind}")
+            lg = logits.float()
+            rows = torch.arange(lg.shape[0])
+            mine = lg.argmax(-1)
+            gap = (lg[rows, mine] - lg[rows, want.long()]) / lg.abs().amax(-1)
+            flips = mine != want.long()
+            st = self.stats[kind]
+            st["draws"] += int(rows.numel())
+            st["flips"] += int(flips.sum())
+            if flips.any():
+                worst = float(gap[flips].max())
+                st["worst_gap"] = max(st["worst_gap"], worst)
+                if worst > TIE_FRAC:
+                    raise AssertionError(
+                        f"{kind} draw {self.pos}: card token {want.tolist()} vs "
+                        f"cpu argmax {mine.tolist()}, gap {worst:.3e} of the "
+                        f"largest logit (near-tie margin {TIE_FRAC})")
+            return want.to(torch.int32)
+
+        return force if replay else record
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -227,12 +391,32 @@ def k2_inputs(B, T, H, Hkv, dk, S, seed):
     return q, k_q, k_s, v_q, v_s, qend.to(torch.int32)
 
 
+def decode_inputs(B, H, Hkv, dk, S, dtype, seed):
+    """K3/K4 inputs: lengths 0, 1, 255, 256, 257 and S-1 among the rows, the
+    rest random; NaN in slot S-1 and in every slot past a row's length."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    q = torch.randn((B, H, dk), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, Hkv, dk), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, Hkv, dk), generator=g, device=dev).to(dtype)
+    special = [0, 1, 255, 256, 257, S - 1]
+    rest = torch.randint(1, S - 1, (B - len(special),), generator=g, device=dev)
+    length = torch.cat([torch.tensor(special, device=dev), rest]).to(torch.int32)
+    masked = torch.arange(S, device=dev)[None, :] >= length[:, None].long()
+    k[masked] = float("nan")
+    v[masked] = float("nan")
+    return q, k, v, length
+
+
 def phase_kernel_parity():
     import torch
 
     from freeze_omni_tpu_torch.ops import attention as att
     from freeze_omni_tpu_torch.ops import quant_matmul as qm
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     tol = 2e-2
     k1_err = 0.0
     for (K, O) in K1_SHAPES:
@@ -262,31 +446,60 @@ def phase_kernel_parity():
             f"{err:.3e} on {int(valid.sum())} valid rows; qend=0 rows finite")
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version at S={S}")
-    return k1_err, k2_err
+    dec_err = {"decode_attention": 0.0, "decode_attention_blocked": 0.0}
+    for (B, H, Hkv, dk, S, dtype, dtol) in (
+            (8, 28, 4, 128, 1024, torch.bfloat16, 2e-2),   # LLM text decode
+            (8, 14, 14, 64, 1265, torch.float32, 1e-4),    # BatchedTTS pool
+            (8, 14, 14, 64, 2048, torch.float32, 1e-4)):   # first_response
+        q, k, v, length = decode_inputs(B, H, Hkv, dk, S, dtype, seed=S + dk)
+        ref = att.decode_attention_reference(q, k, v, length)
+        valid = length > 0
+        for name in dec_err:
+            out = getattr(att, name)(q, k, v, length)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out.float()).all() or (out[~valid] != 0).any():
+                raise AssertionError(f"{name} wrote non-finite values or a "
+                                     f"nonzero masked row at S={S}")
+            err, ok = max_violation(out[valid], ref[valid], dtol)
+            dec_err[name] = max(dec_err[name], err)
+            log(f"[parity] {name} B={B} H={H} Hkv={Hkv} dk={dk} S={S} "
+                f"{str(dtype).split('.')[-1]}: max_abs_err {err:.3e} (tol {dtol}) "
+                f"on {int(valid.sum())} valid rows, lengths {length.tolist()}; "
+                f"length=0 rows finite")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version "
+                                     f"at S={S}")
+    return {"quant_matmul": k1_err, "prefill_quant": k2_err, **dec_err}
 
 
-def phase_slice_parity():
+def parity_config():
     import dataclasses
 
+    from freeze_omni_tpu_torch.config import flagship_system
+
+    cfg = flagship_system()
+    llm = dataclasses.replace(cfg.audio_llm.llm, num_layers=2, max_kv_len=1024)
+    return dataclasses.replace(
+        cfg, audio_llm=dataclasses.replace(cfg.audio_llm, llm=llm),
+        serving=dataclasses.replace(cfg.serving, max_sessions=2, kv_quant_bits=8),
+        sampling=dataclasses.replace(cfg.sampling, top_k=1),
+        tts=dataclasses.replace(cfg.tts, top_k=1))
+
+
+def phase_tick_parity():
     import numpy as np
     import torch
 
-    from freeze_omni_tpu_torch.config import flagship_system
     from freeze_omni_tpu_torch.models import audio_llm
     from freeze_omni_tpu_torch.runtime.engine import ServingEngine
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = flagship_system()
-    llm = dataclasses.replace(cfg.audio_llm.llm, num_layers=2, max_kv_len=1024)
-    cfg = dataclasses.replace(
-        cfg, audio_llm=dataclasses.replace(cfg.audio_llm, llm=llm),
-        serving=dataclasses.replace(cfg.serving, max_sessions=2, kv_quant_bits=8))
+    cfg = parity_config()
     params = audio_llm.init_params(cfg.audio_llm, seed=1, device="cuda",
                                    quantize_llm=True)
-    cpu_params = tree_to(params, "cpu")
     gpu = ServingEngine(cfg, params, device="cuda")
-    cpu = ServingEngine(cfg, cpu_params, device="cpu")
+    cpu = ServingEngine(cfg, tree_to(params, "cpu"), device="cpu")
     sids = ["p0", "p1"]
     for sid in sids:
         gpu.open_session(sid)
@@ -315,14 +528,103 @@ def phase_slice_parity():
             raise AssertionError(f"tick {tick}: KV lengths {gl} vs {cl}")
     if compared == 0:
         raise AssertionError("no user prediction was compared")
-    log(f"[slice-parity] 2-layer flagship widths, {n_ticks} dual ticks x 2 "
+    log(f"[tick-parity] 2-layer flagship widths, {n_ticks} dual ticks x 2 "
         f"sessions: card vs cpu max |dprob| {worst:.3e} over {compared} "
         f"probabilities (atol {atol}); KV lengths equal")
-    del gpu, cpu, params, cpu_params
-    torch.cuda.empty_cache()
+    return gpu, cpu, sids
 
 
-def phase_main_path():
+def _same_lengths(gpu, cpu, what):
+    gl = gpu.store.caches.kv.length.cpu().tolist()
+    cl = cpu.store.caches.kv.length.tolist()
+    if gl != cl:
+        raise AssertionError(f"{what}: KV lengths {gl} (card) vs {cl} (cpu)")
+
+
+def _pcm_close(a, b, what):
+    import numpy as np
+
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: PCM shapes {a.shape} vs {b.shape}")
+    err = float(np.abs(a - b).max()) if a.size else 0.0
+    if not (np.isfinite(a).all() and err <= PCM_TOL):
+        raise AssertionError(f"{what}: card vs cpu PCM max |d| {err}")
+    return err
+
+
+def _pool_sentence(pool, key, hidden, prefix):
+    """Start one sentence and step the pool until it finishes; returns its
+    PCM, concatenated."""
+    import numpy as np
+
+    if pool.start([(key, hidden, prefix)]) != 1:
+        raise AssertionError("the pool did not take the sentence")
+    chunks = []
+    while pool.n_active:
+        for _, lst in pool.step().items():
+            chunks += [pcm for pcm, _ in lst]
+    return np.concatenate(chunks, axis=-1)
+
+
+def phase_response_parity(gpu, cpu, sids):
+    import dataclasses
+
+    import numpy as np
+
+    from freeze_omni_tpu_torch.runtime.tts_batch import BatchedTTS
+
+    cfg = gpu.cfg
+    tts_g = tts_params(cfg, seed=2)
+    tts_c = tree_to(tts_g, "cpu")
+    tcfg = dataclasses.replace(cfg.tts, max_tokens=PARITY_TTS_MAX_TOKENS)
+    tape = SamplingTape()
+    runs = {}
+    for side, engine, tts, device in (("card", gpu, tts_g, "cuda"),
+                                      ("cpu", cpu, tts_c, "cpu")):
+        with tape.attached(replay=side == "cpu"):
+            first = engine.respond_fast_many(sids, tts, n_text=8)
+            last = {sid: first[sid][1][-1] for sid in sids}
+            seg = engine.continue_segments(last, n_steps=8)
+            if side == "card":
+                toks, hids, _ = seg[sids[0]]
+                sentence = sentence_inputs(
+                    engine, fixed_sentences()[0],
+                    [hids[j][None, None, :] for j in range(len(toks))])
+            pool = BatchedTTS(tts, tcfg, capacity=2, seed=0, device=device)
+            pcm = _pool_sentence(pool, "s", *sentence)
+        runs[side] = (first, seg, pcm)
+        if side == "card":
+            log(f"[response-parity] card: {len(tape.tokens)} draws recorded")
+    if tape.pos != len(tape.tokens):
+        raise AssertionError(f"the CPU replayed {tape.pos} of "
+                             f"{len(tape.tokens)} recorded draws")
+    (f_g, s_g, p_g), (f_c, s_c, p_c) = runs["card"], runs["cpu"]
+    pcm_err = 0.0
+    for sid in sids:
+        if f_g[sid][1] != f_c[sid][1] or s_g[sid][0] != s_c[sid][0]:
+            raise AssertionError(f"{sid}: text tokens differ after replay")
+        pcm_err = max(pcm_err, _pcm_close(f_g[sid][0], f_c[sid][0],
+                                          f"first response {sid}"))
+        hg, hc = s_g[sid][1], s_c[sid][1]
+        rel = float((np.abs(hg - hc).max(1) / np.abs(hc).max(1)).max())
+        if rel > HIDDEN_ROW_TOL:
+            raise AssertionError(f"{sid}: continue hiddens differ by {rel:.3e} "
+                                 f"of the row maximum")
+    pcm_err = max(pcm_err, _pcm_close(p_g, p_c, "pooled sentence"))
+    _same_lengths(gpu, cpu, "after the response")
+    st = tape.stats
+    log(f"[response-parity] 2-layer flagship LLM + flagship decoder/codec, "
+        f"greedy, {len(sids)} sessions: respond_fast_many (n_text 8) + one "
+        f"continue_segments round (8) + one BatchedTTS sentence "
+        f"({p_g.shape[-1]} samples, max_tokens {PARITY_TTS_MAX_TOKENS}); "
+        f"teacher-forced replay on the cpu: text {st['text']['flips']} near-tie "
+        f"flips of {st['text']['draws']} draws (worst gap "
+        f"{st['text']['worst_gap']:.3e}), codec {st['codec']['flips']} of "
+        f"{st['codec']['draws']} (worst {st['codec']['worst_gap']:.3e}), margin "
+        f"{TIE_FRAC}; PCM max |d| {pcm_err:.3e} (tol {PCM_TOL}); KV lengths equal")
+
+
+def phase_tick_path():
     import dataclasses
 
     import numpy as np
@@ -330,8 +632,6 @@ def phase_main_path():
 
     from freeze_omni_tpu_torch.config import flagship_system
     from freeze_omni_tpu_torch.models import audio_llm
-    from freeze_omni_tpu_torch.ops import attention as att
-    from freeze_omni_tpu_torch.ops import quant_matmul as qm
     from freeze_omni_tpu_torch.runtime.engine import ServingEngine
 
     torch.backends.cudnn.allow_tf32 = True  # serving default
@@ -345,22 +645,20 @@ def phase_main_path():
     params = audio_llm.init_params(cfg.audio_llm, seed=0, device="cuda",
                                    quantize_llm=True)
     torch.cuda.synchronize()
-    log(f"[main] flagship int8 params drawn on the card in "
+    log(f"[tick] flagship int8 params drawn on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     engine = ServingEngine(cfg, params, kv_dtype=torch.bfloat16, device="cuda")
     sids = [f"s{i}" for i in range(cfg.serving.max_sessions)]
     max_ticks = 200
     feeds = session_feeds(cfg.duplex.gating, len(sids), max_ticks)
 
-    qm.quant_matmul.launches = 0
-    att.prefill_quant.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     for sid in sids:
         engine.open_session(sid)
     torch.cuda.synchronize()
     open_s = time.perf_counter() - t0
-    at_open = {"quant_matmul": qm.quant_matmul.launches,
-               "prefill_quant": att.prefill_quant.launches}
+    at_open = read_launches()
     front_ms, engine_ms, rolls, tick = [], [], 0, 0
     prev = engine.store.caches.kv.length.cpu()
     probs_seen = 0
@@ -381,103 +679,338 @@ def phase_main_path():
         rolls += int((lengths < prev).sum())
         prev = lengths
         tick += 1
-    launches = {"quant_matmul": qm.quant_matmul.launches,
-                "prefill_quant": att.prefill_quant.launches}
+    launches = read_launches()
     if rolls == 0:
         raise AssertionError(f"no KV roll fired in {tick} ticks")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    for name in ("quant_matmul", "prefill_quant"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the tick path")
     # first 5 ticks excluded (warm-up)
     front, eng = np.array(front_ms[5:]), np.array(engine_ms[5:])
     whole = front + eng
-
-    def pct(a):
-        return f"p50 {np.percentile(a, 50):.2f} ms, p90 {np.percentile(a, 90):.2f} ms"
-
     peak = torch.cuda.max_memory_allocated()
-    log(f"[main] 8 sessions opened (role prefill + pool seed) in {open_s:.2f} s")
-    log(f"[main] {tick} dual ticks, {probs_seen} user predictions, {rolls} "
+    log(f"[tick] 8 sessions opened (role prefill + pool seed) in {open_s:.2f} s")
+    log(f"[tick] {tick} dual ticks, {probs_seen} user predictions, {rolls} "
         f"session KV rolls; peak device memory {peak / 2**30:.2f} GiB; "
         f"launches {launches}")
-    log(f"[main] tick with host frontend (16 chunks gated) {pct(whole)} against "
+    log(f"[tick] tick with host frontend (16 chunks gated) {pct(whole)} against "
         f"the {BUDGET_MS:.0f} ms budget; host frontend alone {pct(front)}; "
         f"engine.tick alone {pct(eng)}")
     per_tick = {k: (launches[k] - at_open[k]) / tick for k in launches}
-    return engine, launches, per_tick
+    return engine, sids, launches, per_tick
 
 
-def phase_kernel_times(engine, launches, per_tick, errs, smi):
+def phase_response_path(engine, sids, smi):
+    """The spoken response of all 8 sessions, as runtime/service.py drives
+    it: respond_fast_many, continue_segments rounds, sentences into the
+    BatchedTTS pool, stepped until every sentence has finished."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch.duplex.responder import split_sentences
+    from freeze_omni_tpu_torch.runtime.tts_batch import BatchedTTS
+
+    cfg = engine.cfg
+    tok = engine.core.tokenizer
+    eod = tok.eod_id
+    sr = cfg.tts.codec.sample_rate
+    tts = tts_params(cfg, seed=3)
+    pool = BatchedTTS(tts, dataclasses.replace(cfg.tts, max_tokens=TTS_MAX_TOKENS),
+                      capacity=8, seed=0, device="cuda")
+    texts = fixed_sentences()
+    audio = {sid: [] for sid in sids}
+    sentences = {sid: 0 for sid in sids}
+    queues = {sid: [] for sid in sids}
+    in_flight = set()
+
+    def take(sid, pcm):
+        if not (np.isfinite(pcm).all() and np.abs(pcm).max(initial=0.0) <= 1.0):
+            raise AssertionError(f"{sid}: PCM not finite or outside [-1, 1]")
+        audio[sid].append(pcm)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    first = engine.respond_fast_many(sids, tts, n_text=8)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    resp = {}
+    for sid, (pcm, toks) in first.items():
+        if pcm.shape[-1] == 0:
+            raise AssertionError(f"{sid}: no first-response audio")
+        take(sid, pcm)
+        if toks and toks[-1] != eod and len(toks) < cfg.duplex.resp_max_tokens:
+            resp[sid] = {"last": toks[-1], "n": len(toks), "toks": [], "hids": []}
+    round_ms, step_ms, step_audio_s, step_decoded_s = [], [], [], []
+    token_s = cfg.tts.codec.upsample_rate / sr           # audio per codec token
+    while resp or any(queues.values()) or pool.n_active:
+        if resp:
+            t0 = time.perf_counter()
+            out = engine.continue_segments({s: r["last"] for s, r in resp.items()},
+                                           n_steps=cfg.duplex.resp_segment)
+            round_ms.append((time.perf_counter() - t0) * 1e3)
+            for sid, (toks, hids, done) in out.items():
+                r = resp[sid]
+                per_tok = [hids[j][None, None, :] for j in range(len(toks))]
+                r["n"] += len(toks)
+                queues[sid] += split_sentences(tok, eod, r["toks"], r["hids"],
+                                               toks, per_tok)
+                # random-weight ids carry no sentence suffix: every segment
+                # ends a sentence, so a sentence holds at most one segment
+                if r["toks"]:
+                    queues[sid].append((list(r["toks"]), list(r["hids"])))
+                    r["toks"].clear()
+                    r["hids"].clear()
+                r["last"] = toks[-1] if toks else eod
+                if done or r["n"] >= cfg.duplex.resp_max_tokens:
+                    del resp[sid]
+        jobs = []
+        for sid in sids:   # at most one sentence in flight per session
+            if sid not in in_flight and queues[sid] and len(jobs) < pool.n_free:
+                _, hids = queues[sid].pop(0)
+                text = texts[sentences[sid] % len(texts)]
+                jobs.append(((sid, sentences[sid]),
+                             *sentence_inputs(engine, text, hids)))
+                sentences[sid] += 1
+                in_flight.add(sid)
+        if jobs and pool.start(jobs) != len(jobs):
+            raise AssertionError("the pool refused sentences it had room for")
+        if pool.n_active:
+            step_decoded_s.append(pool.n_active * cfg.tts.codec_chunk_size * token_s)
+            t0 = time.perf_counter()
+            emitted = pool.step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            n = 0
+            for (sid, _), lst in emitted.items():
+                for pcm, final in lst:
+                    take(sid, pcm)
+                    n += pcm.shape[-1]
+                    if final:
+                        in_flight.discard(sid)
+            step_audio_s.append(n / sr)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("quant_matmul", "prefill_quant", "decode_attention_blocked"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"response path")
+    seconds = {sid: sum(p.shape[-1] for p in audio[sid]) / sr for sid in sids}
+    for sid in sids:
+        if sentences[sid] == 0 or len(audio[sid]) < 2:
+            raise AssertionError(f"{sid}: no pooled sentence was synthesized")
+    log(f"[response] ({smi}) 8 sessions: respond_fast_many (B=8, n_text 8, "
+        f"{cfg.tts.codec_chunk_size + cfg.tts.codec_padding_size} codec "
+        f"tokens, dialog_ss to first PCM on the host) {first_ms:.2f} ms")
+    log(f"[response] continue_segments rounds of {cfg.duplex.resp_segment} "
+        f"tokens (up to {cfg.duplex.resp_max_tokens}): {len(round_ms)} rounds, "
+        f"ms per round {[round(x, 2) for x in round_ms]}")
+    log(f"[response] BatchedTTS (capacity 8, max_tokens cut to {TTS_MAX_TOKENS}; "
+        f"each sentence's text is a fixed sentence of "
+        f"freeze_omni_tpu/assets/tiny_s2s/sentences.txt, its prefix the real "
+        f"hiddens): {sum(sentences.values())} sentences, {len(step_ms)} steps, "
+        f"step {pct(step_ms)}; audio decoded per step (active rows x "
+        f"{cfg.tts.codec_chunk_size} tokens) p50 "
+        f"{np.percentile(step_decoded_s, 50):.3f} s, p90 "
+        f"{np.percentile(step_decoded_s, 90):.3f} s; audio emitted per step "
+        f"(after seam splicing) p50 {np.percentile(step_audio_s, 50):.3f} s, "
+        f"p90 {np.percentile(step_audio_s, 90):.3f} s")
+    log(f"[response] seconds of audio per session "
+        f"{[round(seconds[s], 3) for s in sids]}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    return {"launches": launches, "pool": pool, "n_responses": len(sids),
+            "first_ms": first_ms, "round_ms": round_ms, "step_ms": step_ms}
+
+
+def k1_time(x, w_q, scale):
+    """K1's kernel, plain and library times and its bound on x @ w."""
+    import torch
+
+    from freeze_omni_tpu_torch.ops import quant_matmul as qm
+
+    N, K = x.shape
+    O = w_q.shape[1]
+    w_t = w_q.t().contiguous()            # the library call wants [O, K]
+    s_b = scale.to(torch.bfloat16)        # and scales in x's dtype
+    r = {"ms": cuda_time_ms(lambda: qm.quant_matmul(x, w_q, scale)),
+         "plain_ms": cuda_time_ms(lambda: qm.quant_matmul_reference(x, w_q, scale),
+                                  iters=10),
+         "library_ms": cuda_time_ms(lambda: torch._weight_int8pack_mm(x, w_t, s_b)),
+         "bytes": K * O + 4 * O + 2 * N * K + 2 * N * O, "ops": 2 * N * K * O}
+    del w_t
+    return r
+
+
+def k1_layer(layers, lm_head, N, g):
+    """One layer's seven projections (and the lm_head when given) at N rows."""
+    import torch
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+    mats = [(name, layers[name]["w_q"][0], layers[name]["scale"][0])
+            for name in ("q", "k", "v", "o", "gate", "up", "down")]
+    if lm_head is not None:
+        mats.append(("lm_head", lm_head["w_q"], lm_head["scale"]))
+    for name, w_q, scale in mats:
+        K, O = w_q.shape
+        x = torch.randn((N, K), generator=g, device="cuda").to(torch.bfloat16)
+        r = k1_time(x, w_q, scale)
+        b_ms, b_by = bound(r["bytes"], r["ops"])
+        log(f"[time] K1 {name} N={N} K={K} O={O}: kernel {r['ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, "
+            f"torch._weight_int8pack_mm {r['library_ms']:.4f} ms")
+        for key in total:
+            total[key] += r[key]
+    total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["ops"])
+    return total
+
+
+def k2_time(kv, qend, H, g):
     import torch
 
     from freeze_omni_tpu_torch.ops import attention as att
-    from freeze_omni_tpu_torch.ops import quant_matmul as qm
 
+    B, T = qend.shape
+    dk, Hkv = kv.k.shape[-1], kv.k.shape[-2]
+    q = torch.randn((B, T, H, dk), generator=g, device="cuda").to(torch.bfloat16)
+    args = (q, kv.k[0], kv.k_scale[0], kv.v[0], kv.v_scale[0], qend)
+    visible = qend.long().amax(dim=1)                       # slots each row reads
+    nbytes = int(visible.sum()) * Hkv * (2 * dk + 2 * 4) + 2 * q.numel() * 2 \
+        + qend.numel() * 4
+    b_ms, b_by = bound(nbytes, int(qend.long().sum()) * H * dk * 4)
+    return {"ms": cuda_time_ms(lambda: att.prefill_quant(*args)),
+            "plain_ms": cuda_time_ms(lambda: att.prefill_quant_reference(*args),
+                                     iters=10),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "visible": visible.tolist()}
+
+
+def decode_time(fn, k, v, length, H, g):
+    """A decode-attention kernel on cache k/v [B, S, Hkv, dk] with `length`,
+    beside the plain version, one scaled_dot_product_attention call with a
+    length mask, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from freeze_omni_tpu_torch.ops import attention as att
+
+    B, S, Hkv, dk = k.shape
+    q = torch.randn((B, H, dk), generator=g, device="cuda").to(k.dtype)
+    mask = (torch.arange(S, device="cuda")[None, :] < length.long()[:, None])
+    qs, ks, vs = q[:, :, None, :], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    am = mask[:, None, None, :]
+    elem = k.element_size()
+    n_vis = int(length.long().sum())
+    nbytes = n_vis * Hkv * dk * 2 * elem + 2 * q.numel() * q.element_size() \
+        + length.numel() * 4
+    b_ms, b_by = bound(nbytes, 4 * n_vis * H * dk)
+    return {"ms": cuda_time_ms(lambda: fn(q, k, v, length)),
+            "plain_ms": cuda_time_ms(
+                lambda: att.decode_attention_reference(q, k, v, length), iters=10),
+            "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=am, enable_gqa=True)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_kernel_times(engine, tick, resp, errs, smi):
+    import torch
+
+    from freeze_omni_tpu_torch.ops import attention as att
+
+    engine_launches, per_tick = tick
     cfg = engine.cfg.audio_llm.llm
-    layers = engine.core.params["llm"]["layers"]
-    N = engine.store.max_sessions * 29   # 8+4+13+4 tokens per session per dual tick
+    params = engine.core.params["llm"]
     g = torch.Generator(device="cuda").manual_seed(7)
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
-    for name in ("q", "k", "v", "o", "gate", "up", "down"):
-        w_q, scale = layers[name]["w_q"][0], layers[name]["scale"][0]
-        K, O = w_q.shape
-        x = torch.randn((N, K), generator=g, device="cuda").to(torch.bfloat16)
-        w_t = w_q.t().contiguous()            # the library call wants [O, K]
-        s_b = scale.to(torch.bfloat16)        # and scales in x's dtype
-        ms = cuda_time_ms(lambda: qm.quant_matmul(x, w_q, scale))
-        plain = cuda_time_ms(lambda: qm.quant_matmul_reference(x, w_q, scale), iters=10)
-        lib = cuda_time_ms(lambda: torch._weight_int8pack_mm(x, w_t, s_b))
-        nbytes = K * O + 4 * O + 2 * N * K + 2 * N * O
-        nops = 2 * N * K * O
-        b_ms, b_by = bound(nbytes, nops)
-        log(f"[time] K1 {name} N={N} K={K} O={O}: kernel {ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), plain {plain:.4f} ms, "
-            f"torch._weight_int8pack_mm {lib:.4f} ms")
-        k1["ms"] += ms
-        k1["plain_ms"] += plain
-        k1["library_ms"] += lib
-        k1["bytes"] += nbytes
-        k1["ops"] += nops
-    k1_bound, k1_by = bound(k1["bytes"], k1["ops"])
+    N = engine.store.max_sessions * 29   # 8+4+13+4 tokens per session per dual tick
+    k1 = k1_layer(params["layers"], None, N, g)
+    k1_dec = k1_layer(params["layers"], params["lm_head"], engine.store.max_sessions, g)
 
-    # K2 on the live layer-0 cache after the main run, with the qend of a
-    # regular tick: prefixes masked, both identities' 4 chunk tokens valid
+    # K2 on the live layer-0 cache: a regular tick's qend (prefixes masked,
+    # both identities' 4 chunk tokens valid), and a text-decode step (T = 1)
     kv = engine.store.caches.kv
     B, S = kv.k.shape[1], kv.k.shape[2]
-    H, Hkv, dk = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     mask = torch.zeros((B, 29), dtype=torch.bool, device="cuda")
     mask[:, 8:12] = True
     mask[:, 25:29] = True
     rank = torch.cumsum(mask.long(), 1) - 1
     qend = torch.where(mask, kv.length.long()[:, None] + rank + 1,
                        torch.zeros_like(rank)).to(torch.int32)
-    q = torch.randn((B, 29, H, dk), generator=g, device="cuda").to(torch.bfloat16)
-    args = (q, kv.k[0], kv.k_scale[0], kv.v[0], kv.v_scale[0], qend)
-    k2_ms = cuda_time_ms(lambda: att.prefill_quant(*args))
-    k2_plain = cuda_time_ms(lambda: att.prefill_quant_reference(*args), iters=10)
-    visible = qend.long().amax(dim=1)                       # slots each row reads
-    k2_bytes = int(visible.sum()) * Hkv * (2 * dk + 2 * 4) + 2 * q.numel() * 2 \
-        + qend.numel() * 4
-    k2_ops = int(qend.long().sum()) * H * dk * 4
-    k2_bound, k2_by = bound(k2_bytes, k2_ops)
-    log(f"[time] K2 B={B} T=29 S={S} visible slots/row {visible.tolist()}: "
-        f"kernel {k2_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}), plain "
-        f"{k2_plain:.4f} ms")
+    k2 = k2_time(kv, qend, cfg.num_heads, g)
+    k2_dec = k2_time(kv, (kv.length.long() + 1)[:, None].to(torch.int32),
+                     cfg.num_heads, g)
+    for label, r in (("T=29", k2), ("T=1", k2_dec)):
+        log(f"[time] K2 B={B} {label} S={S} visible slots/row {r['visible']}: "
+            f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms")
+
+    # K3/K4 on the speech decoder: the BatchedTTS pool's live layer-0 cache
+    # (f32, S = 8*32 + 1 + max_tokens + 8) with the lengths its rows ended
+    # at, and first_response's cache (S = 2048) with 73..123 visible slots
+    dcfg = engine.cfg.tts.decoder
+    pkv = resp["pool"].state.cache.kv
+    pool_len = pkv.length.clone()
+    fr_S = dcfg.max_kv_len
+    fr_len = torch.linspace(73, 123, 8, device="cuda").round().to(torch.int32)
+    fr_k = torch.randn((8, fr_S, dcfg.num_heads, dcfg.head_dim), generator=g,
+                       device="cuda")
+    fr_v = torch.randn(fr_k.shape, generator=g, device="cuda")
+    dec = {}
+    for name in ("decode_attention", "decode_attention_blocked"):
+        fn = getattr(att, name)
+        dec[name] = decode_time(fn, pkv.k[0], pkv.v[0], pool_len, dcfg.num_heads, g)
+        dec[name]["first_response"] = decode_time(fn, fr_k, fr_v, fr_len,
+                                                  dcfg.num_heads, g)
+        for label, r in (("pool", dec[name]), ("first_response",
+                                               dec[name]["first_response"])):
+            log(f"[time] {name} {label} shape: kernel {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']}), plain "
+                f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+                f"{r['library_ms']:.4f} ms")
+    log(f"[time] K3/K4 pool shape B={pkv.k.shape[1]} S={pkv.k.shape[2]} "
+        f"H={dcfg.num_heads} dk={dcfg.head_dim} lengths {pool_len.tolist()}; "
+        f"first_response shape S={fr_S} lengths {fr_len.tolist()}")
+
+    launches = {k: engine_launches[k] + resp["launches"][k] for k in engine_launches}
+    n_resp = resp["n_responses"]
+
+    def entry(name, source, replaces, key, timing, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": errs[key], "ms": timing["ms"],
+                "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+                "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+                "launches_tick_path": engine_launches[key],
+                "launches_response_path": resp["launches"][key],
+                "launches_per_tick": per_tick[key],
+                "launches_per_response": resp["launches"][key] / n_resp,
+                "card": smi, **extra}
+
+    def short(t):
+        return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}
+
     return [
-        {"name": "quant_matmul (K1, one layer's 7 projections at N=232)",
-         "route": "cuda", "source": "freeze_omni_tpu_torch/csrc/quant_matmul.cu",
-         "replaces": "freeze_omni_tpu/ops/quant_matmul.py:41",
-         "launches": launches["quant_matmul"], "max_abs_err": errs[0],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1["library_ms"],
-         "launches_per_tick": per_tick["quant_matmul"], "card": smi},
-        {"name": "prefill_quant (K2, one layer at B=8 T=29 S=1024)",
-         "route": "cuda", "source": "freeze_omni_tpu_torch/csrc/prefill_quant.cu",
-         "replaces": "freeze_omni_tpu/ops/attention.py:190",
-         "launches": launches["prefill_quant"], "max_abs_err": errs[1],
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None,
-         "launches_per_tick": per_tick["prefill_quant"], "card": smi},
+        entry("quant_matmul (K1, one layer's 7 projections at N=232)",
+              "freeze_omni_tpu_torch/csrc/quant_matmul.cu",
+              "freeze_omni_tpu/ops/quant_matmul.py:41", "quant_matmul", k1,
+              decode_step_N8_with_lm_head=short(k1_dec)),
+        entry("prefill_quant (K2, one layer at B=8 T=29 S=1024)",
+              "freeze_omni_tpu_torch/csrc/prefill_quant.cu",
+              "freeze_omni_tpu/ops/attention.py:190", "prefill_quant", k2,
+              decode_step_T1=short(k2_dec)),
+        entry("decode_attention (K3, off the main path; timed at the "
+              "BatchedTTS pool shape)",
+              "freeze_omni_tpu_torch/csrc/decode_attention.cu",
+              "freeze_omni_tpu/ops/attention.py:82", "decode_attention",
+              dec["decode_attention"], on_main_path=False,
+              first_response_shape=short(dec["decode_attention"]["first_response"])),
+        entry("decode_attention_blocked (K4, one decoder layer at the "
+              "BatchedTTS pool shape)",
+              "freeze_omni_tpu_torch/csrc/decode_attention.cu",
+              "freeze_omni_tpu/ops/attention.py:369", "decode_attention_blocked",
+              dec["decode_attention_blocked"],
+              first_response_shape=short(
+                  dec["decode_attention_blocked"]["first_response"])),
     ]
 
 
@@ -494,9 +1027,13 @@ def main() -> int:
     name, count, smi = phase_device()
     phase_build()
     errs = phase_kernel_parity()
-    phase_slice_parity()
-    engine, launches, per_tick = phase_main_path()
-    kernels = phase_kernel_times(engine, launches, per_tick, errs, smi)
+    gpu, cpu, sids = phase_tick_parity()
+    phase_response_parity(gpu, cpu, sids)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    engine, sids, launches, per_tick = phase_tick_path()
+    resp = phase_response_path(engine, sids, smi)
+    kernels = phase_kernel_times(engine, (launches, per_tick), resp, errs, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

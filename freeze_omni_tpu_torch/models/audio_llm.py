@@ -7,6 +7,11 @@ conv caches for both identities, plus the LLM KV cache) batched on a leading
 session axis. The JAX version returns updated caches functionally; here the
 step functions update the preallocated cache tensors IN PLACE, rows gated by
 `active`, and also return the caches to keep the JAX signatures.
+
+Text generation (`prefill_and_sample`, `generate_step`, `generate_segment`,
+`prefill_and_generate`) restores the upstream decode loop
+(bin/inference.py:140-183): the JAX `lax.scan` is a Python loop here, and
+the JAX key splits are draws from one `torch.Generator` in order.
 """
 
 from __future__ import annotations
@@ -15,7 +20,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..config import AudioLLMConfig
+from ..config import AudioLLMConfig, SamplingConfig
+from ..ops.sampling import sample_top_k_top_p
 from ..utils.device import resolve_device
 from . import adapter as adapter_mod
 from . import encoder as encoder_mod
@@ -216,3 +222,77 @@ def recognize_step_dual(params, cfg: AudioLLMConfig,
                      dim=1)
     hidden, _ = qwen2.forward(params["llm"], cfg.llm, full, mask, caches.kv)
     return _probs_at(params, hidden[:, : Pu + Tu], mask[:, : Pu + Tu]), caches
+
+
+def _sample(gen, lg, sampling: SamplingConfig) -> torch.Tensor:
+    return sample_top_k_top_p(gen, lg, sampling.temperature, sampling.top_k,
+                              sampling.top_p)
+
+
+def prefill_and_sample(params, cfg: AudioLLMConfig, ids: torch.Tensor,
+                       kv: qwen2.KVCache, gen: torch.Generator,
+                       sampling: SamplingConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor, qwen2.KVCache]:
+    """Stage 'dialog_ss': prefill the assistant chat prefix `ids` [B, T] into
+    `kv` (in place) and sample the first response token from the last
+    prefix position. Returns (token [B] int32, hidden [B, D], kv)."""
+    embeds = qwen2.embed_tokens(params["llm"], ids)
+    hidden, _ = qwen2.forward(params["llm"], cfg.llm, embeds,
+                              torch.ones(ids.shape, dtype=torch.bool,
+                                         device=ids.device), kv)
+    h_last = hidden[:, -1]
+    nxt = _sample(gen, qwen2.logits(params["llm"], cfg.llm, h_last), sampling)
+    return nxt, h_last, kv
+
+
+def generate_step(params, cfg: AudioLLMConfig, token: torch.Tensor,
+                  kv: qwen2.KVCache, gen: torch.Generator,
+                  sampling: SamplingConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor, qwen2.KVCache]:
+    """One text-decode step: embed token [B] -> LLM (appending to `kv` in
+    place) -> sample. Returns (next_token [B], hidden [B, D], kv); the hidden
+    state feeds the speech decoder (bin/inference.py:142-143, 162)."""
+    embeds = qwen2.embed_tokens(params["llm"], token[:, None])
+    mask = torch.ones((token.shape[0], 1), dtype=torch.bool, device=token.device)
+    hidden, _ = qwen2.forward(params["llm"], cfg.llm, embeds, mask, kv)
+    nxt = _sample(gen, qwen2.logits(params["llm"], cfg.llm, hidden[:, 0]),
+                  sampling)
+    return nxt, hidden[:, 0], kv
+
+
+def generate_segment(params, cfg: AudioLLMConfig, token: torch.Tensor,
+                     kv: qwen2.KVCache, gen: torch.Generator,
+                     sampling: SamplingConfig, n_steps: int, eod_id: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                qwen2.KVCache]:
+    """Up to n_steps text tokens on the device, nothing fetched to the host.
+    Returns (tokens [B, n], hiddens [B, n, D], done [B], kv). After eod a row's
+    token repeats eod and its cache stops growing (its writes are masked)."""
+    tok = token.to(torch.int32)
+    done = torch.zeros(tok.shape[0], dtype=torch.bool, device=tok.device)
+    toks, hiddens = [], []
+    for _ in range(n_steps):
+        embeds = qwen2.embed_tokens(params["llm"], tok[:, None])
+        hidden, _ = qwen2.forward(params["llm"], cfg.llm, embeds,
+                                  (~done)[:, None], kv)
+        nxt = _sample(gen, qwen2.logits(params["llm"], cfg.llm, hidden[:, 0]),
+                      sampling)
+        nxt = torch.where(done, torch.full_like(nxt, eod_id), nxt)
+        done = done | (nxt == eod_id)
+        tok = nxt
+        toks.append(nxt)
+        hiddens.append(hidden[:, 0])
+    return torch.stack(toks, 1), torch.stack(hiddens, 1), done, kv
+
+
+def prefill_and_generate(params, cfg: AudioLLMConfig, ids: torch.Tensor,
+                         kv: qwen2.KVCache, gen: torch.Generator,
+                         sampling: SamplingConfig, n_steps: int, eod_id: int):
+    """'dialog_ss' plus the first text segment: assistant-prefix prefill,
+    first-token sample, then n_steps of generation. Returns (tokens
+    [B, 1+n], hiddens [B, 1+n, D], done [B], kv)."""
+    tok0, h0, kv = prefill_and_sample(params, cfg, ids, kv, gen, sampling)
+    toks, hiddens, done, kv = generate_segment(
+        params, cfg, tok0, kv, gen, sampling, n_steps=n_steps, eod_id=eod_id)
+    return (torch.cat([tok0[:, None], toks], 1),
+            torch.cat([h0[:, None], hiddens], 1), done, kv)

@@ -52,7 +52,10 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 
         K, O = p["w_q"].shape
         lead = x.shape[:-1]
-        y = quant_matmul(x.reshape(-1, K), p["w_q"], p["scale"]).reshape(*lead, O)
+        # the kernel takes dense rows; a strided view (e.g. the last position
+        # of a prefill, hidden[:, -1]) is copied
+        y = quant_matmul(x.reshape(-1, K).contiguous(), p["w_q"],
+                         p["scale"]).reshape(*lead, O)
     else:
         w = p["w"]
         if w.dtype != x.dtype:  # jnp.einsum promotes mixed operands
@@ -107,6 +110,24 @@ def conv1d(p, x: torch.Tensor, stride: int = 1, padding=(0, 0),
         x = F.pad(x, tuple(padding))
     return F.conv1d(x, p["w"], p.get("b"), stride=stride, dilation=dilation,
                     groups=groups)
+
+
+def conv_transpose1d(p, x: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
+    """x: [B, C, T]; p['w']: [in, out, k], which is torch's ConvTranspose1d
+    layout (the JAX version writes it as an lhs-dilated conv with a flipped
+    kernel). Output length (T - 1) * stride - 2 * padding + k."""
+    return F.conv_transpose1d(x, p["w"], p.get("b"), stride=stride,
+                              padding=padding)
+
+
+def conv_transpose1d_init(gen, in_ch: int, out_ch: int, kernel: int,
+                          bias: bool = True, dtype=torch.float32, device=None):
+    """Weight [in, out, k]; bound 1/sqrt(in * k) as the JAX initializer."""
+    bound = 1.0 / math.sqrt(in_ch * kernel)
+    p = {"w": _uniform(gen, (in_ch, out_ch, kernel), bound, dtype, device)}
+    if bias:
+        p["b"] = _uniform(gen, (out_ch,), bound, dtype, device)
+    return p
 
 
 def conv2d_init(gen, in_ch: int, out_ch: int, kernel: int,

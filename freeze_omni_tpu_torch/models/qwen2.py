@@ -7,7 +7,13 @@
   along B;
 - GQA, RoPE, RMSNorm, SwiGLU and q/k/v biases as in Qwen2;
 - an int8 cache variant (per-token, per-kv-head scales) quantized on append
-  and read by the int8-KV prefill attention kernel (ops/attention.py, K2).
+  and read by the int8-KV prefill attention kernel (ops/attention.py, K2),
+  at every chunk length including single-token decode;
+- on a float cache, single-token decode (T = 1: text decode and the speech
+  decoder's codec-token steps) goes through the decode attention dispatcher
+  (ops/attention.gqa_decode, kernel K4); longer float-cache chunks (prefill,
+  the speech decoder's prefix) through plain attention, as the JAX package
+  computes them outside any Pallas kernel.
 
 Unlike the JAX version, which threads the cache functionally, `forward` and
 `roll_kv` update the cache tensors IN PLACE (and also return the cache, to
@@ -24,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import LLMConfig
-from ..ops.attention import prefill_quant
+from ..ops.attention import gqa_decode, prefill_quant
 from ..utils.device import resolve_device
 from .layers import (NEG_INF, _uniform, embedding, layer_params, linear,
                      linear_init, rms_norm, rms_norm_init, rotary_embed)
@@ -59,6 +65,14 @@ def init_cache(cfg: LLMConfig, batch: int = 1, max_len: Optional[int] = None,
         v=torch.zeros(shape, dtype=torch.int8, device=device), length=length,
         k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
         v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+
+
+def cache_axes(cache: KVCache) -> KVCache:
+    """Batch-axis index per leaf (for row gather/scatter over sessions); a
+    float cache has no scale leaves."""
+    return KVCache(k=1, v=1, length=0,
+                   k_scale=None if cache.k_scale is None else 1,
+                   v_scale=None if cache.v_scale is None else 1)
 
 
 def quantize_kv_vectors(x: torch.Tensor):
@@ -137,6 +151,12 @@ def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:
     return embedding(p, ids)
 
 
+def logits(params, cfg: LLMConfig, hidden: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return torch.einsum("...d,vd->...v", hidden, params["embed"]["w"])
+    return linear(params["lm_head"], hidden)
+
+
 def _gqa_attention(q, k_all, v_all, mask, rep: int):
     """Float-cache attention. q: [B,T,H,dk]; k_all/v_all: [B,S,Hkv,dk];
     mask: [B,T,S] bool. Returns [B, T, H*dk] in q's dtype."""
@@ -162,15 +182,18 @@ def _apply_rot(x, cos, sin):
 
 
 def forward(params, cfg: LLMConfig, embeds: torch.Tensor, mask: torch.Tensor,
-            cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+            cache: KVCache, pos_offset=0) -> Tuple[torch.Tensor, KVCache]:
     """Prefill/decode step over a static-length chunk of embeddings.
 
     embeds: [B, T, D]; mask: [B, T] bool validity. Valid tokens are appended
     compactly to `cache`, which is updated in place (k/v, scales, length);
     returns (hidden [B, T, D], cache). Invalid positions produce garbage
-    hidden states; callers read the last valid position. (The JAX version's
-    pos_offset and lora arguments serve the speech decoder and training, which
-    are not ported yet.)"""
+    hidden states; callers read the last valid position.
+
+    pos_offset (int or [B]) is subtracted from the RoPE positions only, never
+    from the cache slots: the speech decoder restarts positions after its KV
+    prefix (models/decoder/decoder.py:337-341). (The JAX version's lora
+    arguments serve training, which is not ported yet.)"""
     B, T, D = embeds.shape
     H, Hkv, dk = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     rep = H // Hkv
@@ -182,19 +205,27 @@ def forward(params, cfg: LLMConfig, embeds: torch.Tensor, mask: torch.Tensor,
     n_new = maski.sum(dim=1)                              # [B]
     length = cache.length.to(torch.int64)
     positions = length[:, None] + torch.clamp(rank, min=0)
+    offset = torch.as_tensor(pos_offset, device=dev).to(torch.int64).reshape(-1, 1)
+    rope_positions = positions - offset
     # invalid tokens go to scratch slot S-1; the runtime keeps
     # length + n_new <= S-1, so no valid query ever sees it
     dest = torch.where(mask, positions, torch.full_like(positions, S - 1))
 
-    cos, sin = rotary_embed(positions.reshape(-1), dk, cfg.rope_theta)
+    cos, sin = rotary_embed(rope_positions.reshape(-1), dk, cfg.rope_theta)
     cos = cos.reshape(B, T, dk)
     sin = sin.reshape(B, T, dk)
 
     quant = cache.k_scale is not None
+    decode = not quant and T == 1
     if quant:
         # query t sees slots [0, length + rank_t + 1); invalid queries none
         qend = torch.where(mask, length[:, None] + rank + 1,
                            torch.zeros_like(rank)).to(torch.int32)
+    elif decode:
+        # one query per row: a valid row sees its length + 1 slots (its own
+        # token included), a masked row none
+        visible = torch.where(mask[:, 0], length + 1,
+                              torch.zeros_like(length)).to(torch.int32)
     else:
         slot = torch.arange(S, device=dev)[None, None, :]
         attn_mask = (slot < (length[:, None, None] + rank[:, :, None] + 1)) \
@@ -221,7 +252,11 @@ def forward(params, cfg: LLMConfig, embeds: torch.Tensor, mask: torch.Tensor,
         else:
             cache.k[i][batch_idx, dest] = k.to(cache.k.dtype)
             cache.v[i][batch_idx, dest] = v.to(cache.v.dtype)
-            att = _gqa_attention(q, cache.k[i], cache.v[i], attn_mask, rep)
+            if decode:
+                att = gqa_decode(q[:, 0], cache.k[i], cache.v[i], visible)
+                att = att.reshape(B, 1, H * dk)
+            else:
+                att = _gqa_attention(q, cache.k[i], cache.v[i], attn_mask, rep)
         x = x + linear(lp["o"], att)
         h2 = rms_norm(lp["ln2"], x, cfg.rms_eps)
         x = x + linear(lp["down"], F.silu(linear(lp["gate"], h2)) * linear(lp["up"], h2))

@@ -1,22 +1,32 @@
-"""K2: int8-KV chunk-prefill attention (counterpart of
-freeze_omni_tpu/ops/attention.py:prefill_quant_pallas and its dispatcher
-prefill_quant).
+"""Attention kernels of the serving paths (counterpart of
+freeze_omni_tpu/ops/attention.py).
 
-The serving tick's LLM pass is a chunk prefill of T queries per session
-against the session's int8 cache. Query t of row b sees slots
+K2, int8-KV chunk-prefill attention (prefill_quant_pallas and its dispatcher
+prefill_quant): the serving tick's LLM pass is a chunk prefill of T queries
+per session against the session's int8 cache. Query t of row b sees slots
 [0, qend[b, t]); qend = 0 marks an invalid query. The per-token, per-kv-head
 scales factor out of the dots: k_scale multiplies the scores and v_scale
-folds into the softmax weights.
+folds into the softmax weights. `prefill_quant` launches
+csrc/prefill_quant.cu.
 
-`prefill_quant` launches the hand-written Hopper kernel in
-csrc/prefill_quant.cu for CUDA tensors and runs `prefill_quant_reference`,
-the plain PyTorch version of the same f32 arithmetic, for CPU tensors only.
-A CUDA tensor the kernel does not take raises. Rows with qend = 0 come out
-as zeros in both (the JAX versions leave them unspecified).
-`prefill_quant.launches` counts kernel launches.
+K3 and K4, decode attention over a float cache (decode_attention,
+decode_attention_blocked and the dispatcher gqa_decode): one query token per
+row, q [B, H, dk] against k/v [B, S, Hkv, dk]; row b sees slots
+[0, length[b]) with GQA. Both launch csrc/decode_attention.cu: K4 splits
+each row into blocks of `block` slots (flash-decoding, a second pass merges
+the splits), K3 walks the row in one split. `gqa_decode`, which the T = 1
+float-cache branch of models/qwen2.forward calls (the text decode of a
+float-KV LLM and every codec-token step of the speech decoder), launches K4.
 
-The decode kernels of the JAX module (decode_attention,
-decode_attention_blocked) belong to the response path and are not ported yet.
+Each wrapper launches its hand-written Hopper kernel for CUDA tensors and
+runs the plain PyTorch version of the same f32 arithmetic
+(`prefill_quant_reference`, `decode_attention_reference`) for CPU tensors
+only. A CUDA tensor the kernel does not take raises. Masked slots are
+removed by selection, so whatever a masked slot holds (NaN included) cannot
+reach the result, and masked rows (qend = 0, length = 0) come out as zeros
+(the JAX versions leave them unspecified or give the uniform average over
+all slots; every caller discards them). `<wrapper>.launches` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -126,3 +136,141 @@ def prefill_quant(q, k_q, k_scale, v_q, v_scale, qend):
 
 
 prefill_quant.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4: decode attention over a float cache
+# ---------------------------------------------------------------------------
+
+_MAX_REP_DK = 1024   # rep * dk a kernel block holds (8 accumulators a thread)
+
+
+def decode_attention_reference(q, k_cache, v_cache, length):
+    """q: [B, H, dk]; k/v: [B, S, Hkv, dk]; length: [B] (#visible slots).
+    Returns [B, H, dk] in q.dtype, computed in f32. Masked slots are removed
+    by selection (scores and values), so a non-finite value there cannot
+    reach the result; a row with length 0 comes out as zeros."""
+    B, H, dk = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    rep = H // Hkv
+    visible = torch.arange(S, device=q.device)[None, :] < length.long()[:, None]
+    qg = q.float().reshape(B, Hkv, rep, dk)
+    scores = torch.einsum("bhrd,bshd->bhrs", qg, k_cache.float()) / math.sqrt(dk)
+    vis = visible[:, None, None, :]                                  # [B,1,1,S]
+    scores = torch.where(vis, scores, torch.full_like(scores, NEG_INF))
+    p = torch.where(vis, torch.softmax(scores, dim=-1), torch.zeros_like(scores))
+    v = torch.where(visible[:, :, None, None], v_cache.float(),
+                    torch.zeros((), dtype=torch.float32, device=q.device))
+    out = torch.einsum("bhrs,bshd->bhrd", p, v)
+    return out.reshape(B, H, dk).to(q.dtype)
+
+
+def _decode_lib():
+    fn = _build.load("decode_attention").decode_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + \
+            [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_decode_args(what, q, k_cache, v_cache, length) -> None:
+    dev = q.device
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
+                    ("length", length)):
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, q on {dev}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("length", length)):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if q.dtype not in _DTYPE_CODE or k_cache.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: q and cache dtypes must be in "
+                        f"{list(_DTYPE_CODE)}, got {q.dtype} and {k_cache.dtype}")
+    if v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"{what}: k_cache {k_cache.dtype} and v_cache "
+                        f"{v_cache.dtype} differ")
+    if length.dtype != torch.int32:
+        raise TypeError(f"{what}: length must be int32, got {length.dtype}")
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError(f"{what}: want q [B,H,dk] and k_cache [B,S,Hkv,dk]")
+    B, H, dk = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if (k_cache.shape != (B, S, Hkv, dk) or v_cache.shape != k_cache.shape
+            or length.shape != (B,)):
+        raise ValueError(
+            f"{what}: inconsistent shapes q {tuple(q.shape)}, k_cache "
+            f"{tuple(k_cache.shape)}, v_cache {tuple(v_cache.shape)}, length "
+            f"{tuple(length.shape)}")
+    if dk not in _HEAD_DIMS or H % Hkv or (H // Hkv) * dk > _MAX_REP_DK:
+        raise ValueError(f"{what}: head_dim {dk} not in {_HEAD_DIMS}, H={H} "
+                         f"not a multiple of Hkv={Hkv}, or rep*dk over "
+                         f"{_MAX_REP_DK}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+
+
+def _decode_launch(what, q, k_cache, v_cache, length, split):
+    _check_decode_args(what, q, k_cache, v_cache, length)
+    B, H, dk = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty_like(q)
+    if B == 0 or H == 0:
+        return out
+    split = max(1, min(int(split), S))
+    nsplit = -(-S // split)
+    n_part = B * Hkv * nsplit * (H // Hkv) if nsplit > 1 else 0
+    part_ml = torch.empty((2, n_part), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((n_part * dk,), dtype=torch.float32, device=q.device)
+    fn = _decode_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
+                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 length.data_ptr(), out.data_ptr(), part_ml[0].data_ptr(),
+                 part_ml[1].data_ptr(), part_acc.data_ptr(), B, H, Hkv, S, dk,
+                 split, nsplit, stream)
+    _build.check(err, what)
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, length):
+    """K3: same contract as decode_attention_reference; on the card one
+    kernel block per (row, kv head) walks the row's visible slots."""
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, k_cache, v_cache, length)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    out = _decode_launch("decode_attention", q, k_cache, v_cache, length,
+                         split=k_cache.shape[1])
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+def decode_attention_blocked(q, k_cache, v_cache, length, block: int = 256):
+    """K4: same contract as decode_attention_reference; on the card each row
+    is cut into splits of `block` slots, each walked by its own kernel block
+    up to the row's length, and a second pass merges the splits."""
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, k_cache, v_cache, length)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_blocked: unsupported device {q.device}")
+    if block <= 0:
+        raise ValueError(f"decode_attention_blocked: block {block} must be > 0")
+    out = _decode_launch("decode_attention_blocked", q, k_cache, v_cache,
+                         length, split=block)
+    decode_attention_blocked.launches += 1
+    return out
+
+
+decode_attention_blocked.launches = 0
+
+
+def gqa_decode(q, k_cache, v_cache, length):
+    """Decode attention dispatch: K4 (decode_attention_blocked) for CUDA
+    tensors, the plain version for CPU tensors."""
+    return decode_attention_blocked(q, k_cache, v_cache, length)

@@ -9,14 +9,22 @@ without a chunk pass through untouched. A session nearing KV capacity is
 rolled (qwen2.roll_kv) before the tick, keeping its role prefix and recent
 window.
 
+The response path runs on the same session rows: `respond_fast_many`
+batches every session that decided to speak (dialog_ss) through one
+runtime/fastpath.first_response, from the assistant prefix to the first PCM,
+and `continue_segments` advances every continuing response by one batched
+text segment; both gather the sessions' KV rows, generate on the copy and
+scatter the advanced rows back. Sampling draws from a per-engine
+`torch.Generator` (or one the caller passes).
+
 Left out of the port for now: mesh sharding, buffer donation, session
-export/import and the response paths (respond*, continue_segments*).
+export/import, and `respond` with the DuplexResponder (the service slice).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,6 +104,30 @@ class PendingTick:
         return results
 
 
+class PendingSegments:
+    """Handle for an enqueued but unfetched continue_segments batch. The
+    generation and the KV scatter-back are already enqueued; deliver() waits
+    for the tokens and hiddens, updates the KV-length mirror and builds
+    {sid: (tokens, hiddens, done)}. Deliver at most once; a second call
+    returns {}."""
+
+    __slots__ = ("_engine", "_sids", "_rows", "_kept", "_arrays")
+
+    def __init__(self, engine, sids, rows, kept_slots, arrays):
+        self._engine = engine
+        self._sids = sids
+        self._rows = rows
+        self._kept = kept_slots
+        self._arrays = arrays
+
+    def deliver(self) -> Dict[str, Tuple[list, np.ndarray, bool]]:
+        arrays, self._arrays = self._arrays, None
+        if arrays is None or not self._sids:
+            return {}
+        return self._engine._deliver_segments(self._sids, self._rows,
+                                              self._kept, arrays)
+
+
 class ServingEngine:
     def __init__(self, cfg: SystemConfig, params: Optional[dict] = None,
                  tokenizer=None, seed: int = 0, kv_dtype=torch.float32,
@@ -112,6 +144,8 @@ class ServingEngine:
         self.store = SessionStore(cfg.audio_llm, cfg.serving.max_sessions,
                                   kv_dtype, cfg.serving.kv_quant_bits,
                                   self.device)
+        # response sampling (the JAX engine splits a PRNG key per call)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         # RLock: the callbacks fired inside a roll may re-enter the engine
         self._lock = threading.RLock()
         # pending chunk per (identity, slot): (fbank [1, T, 80], is_sl)
@@ -336,3 +370,156 @@ class ServingEngine:
             if cb is not None:
                 cb("kv_roll", {"kept_recent": int(keep[slot]),
                                "prefix": int(self.store.prefix_len[slot])})
+
+    # ------------------------------------------------------------------
+    # response generation (on the shared batched session caches)
+    # ------------------------------------------------------------------
+
+    def embed_tokens(self, ids) -> np.ndarray:
+        """Token ids -> LLM embeddings as host f32 numpy (the sentence
+        re-embed stage of the synthesis path)."""
+        emb = qwen2.embed_tokens(self.core.params["llm"],
+                                 self.core._ids(np.asarray(ids, np.int64)))
+        return emb.float().cpu().numpy()
+
+    def _resolve_slots(self, sids: List[str]):
+        """Resolve sids -> slots atomically, dropping sessions that closed
+        (another thread may close or recycle them)."""
+        with self._lock:
+            return [(sid, self.store.slot_of(sid)) for sid in sids
+                    if self.store.has(sid)]
+
+    def _still_current(self, pairs):
+        """Rows of a batched result whose (sid, slot) mapping survived the
+        generation; only those KV rows are scattered back."""
+        with self._lock:
+            keep = [(i, slot) for i, (sid, slot) in enumerate(pairs)
+                    if self.store.has(sid) and self.store.slot_of(sid) == slot]
+        return [i for i, _ in keep], [s for _, s in keep]
+
+    def _gather_bucket(self, slots: List[int]) -> qwen2.KVCache:
+        """KV rows of `slots`, padded to the next power of two with copies of
+        the first row (the padded rows are discarded)."""
+        n = len(slots)
+        B = 1 << (n - 1).bit_length()
+        with self._lock:
+            return self.store.gather_kv_many(slots + [slots[0]] * (B - n))
+
+    def respond_fast(self, sid: str, tts_params: dict, n_text: int = 8,
+                     gen: Optional[torch.Generator] = None):
+        """First response of one session: (pcm24k [1, 1, n], text token ids)."""
+        return self.respond_fast_many([sid], tts_params, n_text=n_text,
+                                      gen=gen)[sid]
+
+    def respond_fast_many(self, sids: List[str], tts_params: dict,
+                          n_text: int = 8,
+                          gen: Optional[torch.Generator] = None
+                          ) -> Dict[str, tuple]:
+        """Batched first responses: every session that decided to speak this
+        tick rides ONE runtime/fastpath.first_response, from its KV context
+        to the first PCM, with one host sync. The batch is padded to a power
+        of two with copies of the first session's row; padded rows and rows
+        whose session closed meanwhile are not written back. Returns
+        {sid: (pcm24k [1, 1, n], text_token_ids list)}."""
+        from . import fastpath
+
+        if not sids:
+            return {}
+        self._maybe_roll_kv()  # headroom before appending a response
+        pairs = self._resolve_slots(sids)
+        if not pairs:
+            return {}
+        sids = [sid for sid, _ in pairs]
+        kv = self._gather_bucket([slot for _, slot in pairs])
+        B = int(kv.length.shape[0])
+        cfg = self.cfg
+        gt = torch.as_tensor(np.array(cfg.tts.codec.global_tokens, np.int64),
+                             device=self.device)[None, None].expand(B, 1, -1)
+        ids = self.core._ids(self.core.chat.system_prefix_ids)[None].expand(B, -1)
+        padding = cfg.tts.codec_padding_size
+        n_codec = cfg.tts.codec_chunk_size + padding
+        with torch.no_grad():
+            pcm, toks, _, _, n_valid, kv = fastpath.first_response(
+                self.core.params, tts_params, cfg.audio_llm, cfg.tts.decoder,
+                cfg.tts.codec, ids, kv, gen if gen is not None else self.gen,
+                cfg.sampling, n_text=n_text, n_codec=n_codec,
+                top_k=cfg.tts.top_k, eod_id=self.core.tokenizer.eod_id,
+                global_tokens=gt, penalty_window=cfg.tts.penalty_window_size,
+                penalty=cfg.tts.penalty)
+        with self._lock:
+            rows, kept_slots = self._still_current(pairs)
+            self.store.scatter_kv_many(kept_slots, kv, rows=rows)
+        pcm_np, toks_np = pcm.float().cpu().numpy(), toks.cpu().numpy()
+        nv, len_np = n_valid.cpu().numpy(), kv.length.cpu().numpy()
+        with self._lock:
+            if self._len_host is not None:
+                for i, slot in zip(rows, kept_slots):
+                    self._len_host[slot] = len_np[i]
+        up = cfg.tts.codec.upsample_rate
+        out = {}
+        for i, sid in enumerate(sids):
+            # the reference's emission (llm2tts.py:140-160): an eos inside the
+            # block makes this the final chunk, so every valid token's samples
+            # go out; otherwise the right look-ahead padding is trimmed
+            nvi = int(nv[i])
+            emit_tokens = nvi if nvi < n_codec else n_codec - padding
+            out[sid] = (pcm_np[i:i + 1, :, : emit_tokens * up],
+                        [int(t) for t in toks_np[i]])
+        return out
+
+    def continue_segments(self, last_tokens: Dict[str, int], n_steps: int = 16,
+                          gen: Optional[torch.Generator] = None
+                          ) -> Dict[str, Tuple[list, np.ndarray, bool]]:
+        """Advance every continuing response by one batched text segment:
+        {sid: last_generated_token} -> {sid: (new_tokens, hiddens [n, D] f32,
+        done)}. Each session's KV row advances; `done` means the segment hit
+        eod (tokens after it repeat eod and are not written to the cache)."""
+        return self.continue_segments_submit(last_tokens, n_steps, gen).deliver()
+
+    def continue_segments_submit(self, last_tokens: Dict[str, int],
+                                 n_steps: int = 16,
+                                 gen: Optional[torch.Generator] = None
+                                 ) -> PendingSegments:
+        """Enqueue the batched text continuation (padded to a power of two
+        like respond_fast_many) and the KV scatter-back without fetching the
+        results; the handle's deliver() waits for them."""
+        if not last_tokens:
+            return PendingSegments(self, [], [], [], None)
+        self._maybe_roll_kv()
+        pairs = self._resolve_slots(list(last_tokens))
+        if not pairs:
+            return PendingSegments(self, [], [], [], None)
+        sids = [sid for sid, _ in pairs]
+        kv = self._gather_bucket([slot for _, slot in pairs])
+        B = int(kv.length.shape[0])
+        tok0 = torch.as_tensor([last_tokens[s] for s in sids]
+                               + [last_tokens[sids[0]]] * (B - len(sids)),
+                               dtype=torch.int32, device=self.device)
+        with torch.no_grad():
+            toks, hiddens, done, kv = audio_llm.generate_segment(
+                self.core.params, self.cfg.audio_llm, tok0, kv,
+                gen if gen is not None else self.gen, self.cfg.sampling,
+                n_steps=n_steps, eod_id=self.core.tokenizer.eod_id)
+        with self._lock:
+            rows, kept_slots = self._still_current(pairs)
+            self.store.scatter_kv_many(kept_slots, kv, rows=rows)
+        return PendingSegments(self, sids, rows, kept_slots,
+                               (toks, hiddens, done, kv.length))
+
+    def _deliver_segments(self, sids, rows, kept_slots, arrays):
+        toks, hiddens, done, length = arrays
+        toks_np, done_np = toks.cpu().numpy(), done.cpu().numpy()
+        hid_np = hiddens.float().cpu().numpy()
+        len_np = length.cpu().numpy()
+        eod = self.core.tokenizer.eod_id
+        with self._lock:
+            if self._len_host is not None:
+                for i, slot in zip(rows, kept_slots):
+                    self._len_host[slot] = len_np[i]
+        out = {}
+        for i, sid in enumerate(sids):
+            seg = [int(t) for t in toks_np[i]]
+            if bool(done_np[i]) and eod in seg:
+                seg = seg[: seg.index(eod) + 1]
+            out[sid] = (seg, hid_np[i, : len(seg)], bool(done_np[i]))
+        return out

@@ -30,11 +30,11 @@ BATCH_AXES = audio_llm.SessionCaches(enc_user=_ENC_AXES, adp_user=_ADP_AXES,
 
 def map_rows(fn, axes, *trees):
     """Apply fn(batch_axis, *leaves) over matching leaves of NamedTuple trees
-    (None leaves stay None) and rebuild the structure."""
+    (None leaves and None axes stay None) and rebuild the structure."""
     if isinstance(axes, tuple):
         return type(axes)(*[map_rows(fn, a, *[t[i] for t in trees])
                             for i, a in enumerate(axes)])
-    if trees[0] is None:
+    if trees[0] is None or axes is None:
         return None
     return fn(axes, *trees)
 
@@ -109,3 +109,35 @@ class SessionStore:
         """Write a batch-1 caches tree back into the slot, in place."""
         map_rows(lambda ax, full, r: full.narrow(ax, slot, 1).copy_(r),
                  BATCH_AXES, self.caches, row)
+
+    def gather_kv(self, slot: int) -> qwen2.KVCache:
+        """A batch-1 copy of one session's LLM KV row."""
+        return self.gather_kv_many([slot])
+
+    def scatter_kv(self, slot: int, kv: qwen2.KVCache) -> None:
+        """Write a batch-1 KV row back into the slot, in place."""
+        self.scatter_kv_many([slot], kv)
+
+    def gather_kv_many(self, slots: List[int]) -> qwen2.KVCache:
+        """A copy of several sessions' LLM KV rows as one batch-B KVCache
+        (batched response generation over the sessions that speak)."""
+        kv = self.caches.kv
+        idx = torch.as_tensor(list(slots), dtype=torch.long, device=kv.k.device)
+        return map_rows(lambda ax, t: t.index_select(ax, idx),
+                        qwen2.cache_axes(kv), kv)
+
+    def scatter_kv_many(self, slots: List[int], kv: qwen2.KVCache,
+                        rows: Optional[List[int]] = None) -> None:
+        """Write KV rows back into their slots, in place. `kv` may carry more
+        rows than `slots` (bucket padding); by default row i lands in
+        slots[i]. `rows` (parallel to `slots`) picks which rows land, so a
+        caller can drop rows whose session closed mid-flight."""
+        if not slots:
+            return
+        dev = self.caches.kv.k.device
+        dst = torch.as_tensor(list(slots), dtype=torch.long, device=dev)
+        src = torch.as_tensor(list(rows if rows is not None else range(len(slots))),
+                              dtype=torch.long, device=dev)
+        map_rows(lambda ax, full, new: full.index_copy_(ax, dst,
+                                                        new.index_select(ax, src)),
+                 qwen2.cache_axes(self.caches.kv), self.caches.kv, kv)

@@ -11,6 +11,8 @@ JAX, so this file imports none; run it there with
 Tolerances: f32 activations compare at 1e-4 (the kernels change only the
 order of f32 sums and apply the scales after the dot instead of before);
 bf16 activations at rtol = atol = 2e-2 (one bf16 rounding of the output).
+Masked rows (qend = 0, length = 0) are compared to zero, not to the plain
+version's values.
 """
 
 import numpy as np
@@ -59,6 +61,21 @@ def test_quant_matmul_matches_plain(cuda, dtype, N, K, O):
     assert y.dtype == dtype and y.shape == (N, O)
     tol = TOL[dtype]
     torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_linear_takes_a_strided_activation(cuda):
+    """The last position of a prefill (hidden[:, -1], a strided view) goes
+    through K1 like a dense one."""
+    from freeze_omni_tpu_torch.models.layers import linear
+
+    _, w_q, scale = _qm_inputs(1, 96, 130, torch.bfloat16, cuda)
+    hidden = torch.randn((3, 5, 96), device=cuda).to(torch.bfloat16)
+    before = qm.quant_matmul.launches
+    y = linear({"w_q": w_q, "scale": scale}, hidden[:, -1])
+    torch.cuda.synchronize()
+    assert qm.quant_matmul.launches == before + 1
+    ref = qm.quant_matmul_reference(hidden[:, -1].contiguous(), w_q, scale)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
 def _pq_inputs(B, T, H, Hkv, dk, S, dtype, device, seed=0):
@@ -113,3 +130,83 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         att.prefill_quant(q, k_q, k_s, v_q, v_s, qend)
     with pytest.raises(TypeError, match="int32"):
         att.prefill_quant(q, k_q, k_s, v_q, v_s, qend.long())
+
+
+def _decode_inputs(B, H, Hkv, dk, S, q_dtype, kv_dtype, device, seed=0):
+    """Ragged lengths including 0, 1, 255, 256, 257 and S-1; NaN in the
+    scratch slot S-1 and in every slot at or past a row's length."""
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(B, H, dk).astype(np.float32)).to(q_dtype)
+    k = rng.randn(B, S, Hkv, dk).astype(np.float32)
+    v = rng.randn(B, S, Hkv, dk).astype(np.float32)
+    special = [0, 1, 255, 256, 257, S - 1]
+    length = np.array([special[i] if i < len(special) else rng.randint(1, S)
+                       for i in range(B)], np.int32)
+    length = np.minimum(length, S - 1)
+    for b, n in enumerate(length):
+        k[b, n:] = np.nan
+        v[b, n:] = np.nan
+    k[:, S - 1] = np.nan
+    v[:, S - 1] = np.nan
+    t = [torch.from_numpy(x).to(kv_dtype).to(device) for x in (k, v)]
+    return q.to(device), t[0], t[1], torch.from_numpy(length).to(device)
+
+
+DECODE_CASES = [   # B, H, Hkv, dk, S, q dtype, cache dtype
+    (8, 28, 4, 128, 1024, torch.bfloat16, torch.bfloat16),   # LLM text decode
+    (8, 14, 14, 64, 1265, torch.float32, torch.float32),     # BatchedTTS pool
+    (8, 14, 14, 64, 2048, torch.float32, torch.float32),     # first_response
+    (6, 28, 4, 128, 300, torch.bfloat16, torch.float32),     # cache wider than q
+    (6, 8, 2, 64, 300, torch.float32, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("which", ["decode_attention", "decode_attention_blocked"])
+@pytest.mark.parametrize("B,H,Hkv,dk,S,q_dtype,kv_dtype", DECODE_CASES)
+def test_decode_attention_matches_plain(cuda, which, B, H, Hkv, dk, S, q_dtype,
+                                        kv_dtype):
+    q, k, v, length = _decode_inputs(B, H, Hkv, dk, S, q_dtype, kv_dtype, cuda)
+    fn = getattr(att, which)
+    before = fn.launches
+    out = fn(q, k, v, length)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = att.decode_attention_reference(q, k, v, length)
+    valid = length > 0
+    assert out.dtype == q_dtype and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    assert (out[~valid] == 0).all()
+    tol = TOL[q_dtype]
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(),
+                               rtol=tol, atol=tol)
+
+
+def test_gqa_decode_launches_k4(cuda):
+    q, k, v, length = _decode_inputs(4, 14, 14, 64, 600, torch.float32,
+                                     torch.float32, cuda)
+    k3, k4 = att.decode_attention.launches, att.decode_attention_blocked.launches
+    out = att.gqa_decode(q, k, v, length)
+    torch.cuda.synchronize()
+    assert att.decode_attention_blocked.launches == k4 + 1
+    assert att.decode_attention.launches == k3
+    ref = att.decode_attention_reference(q, k, v, length)
+    valid = length > 0
+    torch.testing.assert_close(out[valid], ref[valid], rtol=1e-4, atol=1e-4)
+
+
+def test_decode_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    for fn in (att.decode_attention, att.decode_attention_blocked):
+        q, k, v, length = _decode_inputs(2, 4, 2, 32, 16, torch.float32,
+                                         torch.float32, cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            fn(q, k, v, length)
+        q, k, v, length = _decode_inputs(2, 4, 2, 64, 16, torch.float32,
+                                         torch.float32, cuda)
+        with pytest.raises(TypeError):
+            fn(q.half(), k, v, length)
+        with pytest.raises(TypeError, match="int32"):
+            fn(q, k, v, length.long())
+        with pytest.raises(ValueError, match="on cpu"):
+            fn(q, k.cpu(), v, length)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, length)

@@ -45,6 +45,26 @@ def test_tiny_checkpoint_roundtrips_every_leaf(tree):
     assert isinstance(w, torch.Tensor) and tuple(w.shape) == (2, 512, 512)
 
 
+def test_tts_subtree_keeps_its_nested_lists(tree):
+    """The speech decoder and codec cross leaf for leaf, and the codec's
+    lists (upsample convs, resblocks, residual codebooks) stay lists."""
+    tts = tree["tts"]
+    port = weights.from_jax(tts, device="cpu")
+    assert set(port) == {"decoder", "codec"}
+    gen, q = port["codec"]["generator"], port["codec"]["quantizer"]
+    for node, src in ((gen["ups"], tts["codec"]["generator"]["ups"]),
+                      (gen["resblocks"], tts["codec"]["generator"]["resblocks"]),
+                      (q["codebooks"], tts["codec"]["quantizer"]["codebooks"])):
+        assert isinstance(node, list) and len(node) == len(src) > 0
+    assert isinstance(gen["resblocks"][0]["convs1"], list)
+    back = weights.to_numpy(port)
+    src, out = _paths(tts), _paths(back)
+    assert src.keys() == out.keys()
+    for k, a in src.items():
+        assert out[k].dtype == a.dtype, k
+        np.testing.assert_array_equal(out[k], a, err_msg=k)
+
+
 def test_bf16_and_int8_leaves_roundtrip():
     rng = np.random.RandomState(0)
     src = {"a": rng.randn(3, 4).astype(ml_dtypes.bfloat16),
