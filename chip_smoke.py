@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Runs the port's two serving paths on the card with no fallback anywhere: the
+Runs the port's serving paths on the card with no fallback anywhere: the
 duplex dialog-state tick and the batched spoken response (text decode ->
-speech decoder -> codec -> PCM). Any failing phase raises and the script
-exits nonzero without printing a result. Phases:
+speech decoder -> codec -> PCM) in int8, and the int4 configuration served
+through bin/serve.py's Server and the DuplexService. Any failing phase
+raises and the script exits nonzero without printing a result. Phases:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: every kernel of both paths from freeze_omni_tpu_torch/csrc with
@@ -14,7 +15,10 @@ exits nonzero without printing a result. Phases:
    register/spill report printed);
 3. kernel parity, each kernel against its plain PyTorch version on the same
    inputs: K1 (int8 weight-only matmul) at every projection shape for N in
-   {1, 89, 232, 1856}, bf16, rtol = atol = 2e-2; K2 (int8-KV prefill
+   {1, 89, 232, 1856}, bf16, rtol = atol = 2e-2; K5 (grouped int4 matmul)
+   at every projection shape and the int4 lm_head's (3584 x 152064) for N
+   in {1, 8, 89, 232, 1856}, group 64 (and one shape at group 128), bf16 at
+   2e-2 and f32 with TF32 off at 1e-4, with a weight tile of nibble 0; K2 (int8-KV prefill
    attention) at B=8, T=29, H=28, Hkv=4, dk=128, S in {1024, 2048} with
    ragged qend including 0 and a non-finite scale in slot S-1, bf16, 2e-2;
    K3 and K4 (float-cache decode attention) at the LLM shape B=8, H=28,
@@ -25,7 +29,8 @@ exits nonzero without printing a result. Phases:
    every slot past a row's length. Valid rows are compared; masked rows
    (qend = 0, length = 0) must be finite;
 4. tick parity at full width and reduced depth: the flagship widths with 2
-   LLM layers, int8 weights and int8 KV; the same weights and fbank windows
+   LLM layers, int8 KV, and int8 weights, then int4 weights (as the server
+   draws them); for each, the same weights and fbank windows
    through the engine on the card (kernels) and on the CPU (plain versions)
    for a few dual ticks; probabilities within 5e-3 (int8 KV re-quantization
    flips on 1-ulp activation differences), decisions at the 0.5 threshold
@@ -67,7 +72,26 @@ exits nonzero without printing a result. Phases:
    bound: max(bytes / 3.35 TB/s, operations / 989 TFLOP/s), counting each
    input byte once and, for K2-K4, only the cache slots this run makes
    visible; beside the plain version's time and, where one PyTorch call
-   computes the same function, that call's time.
+   computes the same function, that call's time; K5 is timed after phase 9
+   on the int4 server's layer-0 projections, at N=232 and N=8, beside
+   torch._weight_int4pack_mm on the same weights;
+9. the int4 serving path at full width and depth (phases 6-8's engine
+   freed first): the port's Server from get_args(SERVE_ARGV) (flagship,
+   --engine --quant 4 --kv_quant 8, 8 sessions, --respond), its ticker
+   stopped and its DuplexService stepped here. 8 sessions stream speech as
+   users and a quiet line as the system, 224 ms per identity per step; once
+   every user's first IPU has closed, one step at threshold 0 makes the
+   sessions inside their next IPU speak, then the service runs their
+   continuation rounds and pooled sentences until flush_tts finds the pool
+   empty. Launch counts are zeroed just before and read just after, and
+   read around every step: K5 and K2 must launch on the tick-only steps
+   and K1 must not (every projection is int4; only the int8 lm_head uses
+   K1), K1 and K4 must launch in the response. Every session must get user
+   ipu_sl/ipu_el events and finite dialog_state_update probabilities, the
+   response audio must be finite with |pcm| <= 1, and the system VAD must
+   hear the fed-back audio. Prints the step p50/p90 against 224 ms (whole
+   step, host frontend, VAD alone, engine.tick), the resident LLM weight
+   bytes int4 beside int8, the peak memory and the launches.
 
 The last lines: the nvidia-smi line, one {"kernels": [...]} JSON line and
 the device JSON line.
@@ -143,7 +167,8 @@ def kernel_wrappers():
     from freeze_omni_tpu_torch.ops import attention as att
     from freeze_omni_tpu_torch.ops import quant_matmul as qm
 
-    return {"quant_matmul": qm.quant_matmul, "prefill_quant": att.prefill_quant,
+    return {"quant_matmul": qm.quant_matmul, "quant_matmul4": qm.quant_matmul4,
+            "prefill_quant": att.prefill_quant,
             "decode_attention": att.decode_attention,
             "decode_attention_blocked": att.decode_attention_blocked}
 
@@ -369,6 +394,25 @@ def k1_inputs(N, K, O, seed):
     return x, w_q, scale
 
 
+K5_SHAPES = K1_SHAPES + ((3584, 152064),)   # + the int4 lm_head (quantize_llm_params)
+
+
+def k5_inputs(N, K, O, group, dtype, seed):
+    """Packed bytes over all of 0..255 (both nibbles take every value) and a
+    first tile of nibble-0 bytes (weight -8, which the quantizer never
+    writes but the kernel must compute)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((N, K), generator=g, device="cuda").to(dtype)
+    w_q4 = torch.randint(0, 256, (K // 2, O), generator=g, device="cuda",
+                         dtype=torch.uint8)
+    w_q4[:32, :128] = 0
+    scale4 = (torch.rand((K // group, O), generator=g, device="cuda") + 0.5) \
+        / (7.0 * K ** 0.5)
+    return x, w_q4, scale4
+
+
 def k2_inputs(B, T, H, Hkv, dk, S, seed):
     import torch
 
@@ -431,6 +475,25 @@ def phase_kernel_parity():
             if not ok or not torch.isfinite(y.float()).all():
                 raise AssertionError(f"K1 disagrees with its plain version at "
                                      f"N={N} K={K} O={O}: {err}")
+    k5_err = 0.0
+    cases = [(K, O, N, 64) for (K, O) in K5_SHAPES for N in (1, 8, 89, 232, 1856)]
+    cases.append((3584, 3584, 232, 128))   # the coarser group of test_quant.py
+    for (K, O, N, group) in cases:
+        for dtype, dtol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            x, w_q4, scale4 = k5_inputs(N, K, O, group, dtype, seed=N + K + O)
+            y = qm.quant_matmul4(x, w_q4, scale4, group)
+            ref = qm.quant_matmul4_reference(x, w_q4, scale4, group)
+            torch.cuda.synchronize()
+            err, ok = max_violation(y, ref, dtol)
+            if dtype == torch.bfloat16:
+                k5_err = max(k5_err, err)
+            log(f"[parity] K5 N={N} K={K} O={O} group={group} "
+                f"{str(dtype).split('.')[-1]}: max_abs_err {err:.3e} (tol {dtol})")
+            if not ok or not torch.isfinite(y.float()).all():
+                raise AssertionError(f"K5 disagrees with its plain version at "
+                                     f"N={N} K={K} O={O} group={group} {dtype}: "
+                                     f"{err}")
+            del x, w_q4, scale4, y, ref
     k2_err = 0.0
     for S in (1024, 2048):
         q, k_q, k_s, v_q, v_s, qend = k2_inputs(8, 29, 28, 4, 128, S, seed=S)
@@ -469,7 +532,8 @@ def phase_kernel_parity():
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version "
                                      f"at S={S}")
-    return {"quant_matmul": k1_err, "prefill_quant": k2_err, **dec_err}
+    return {"quant_matmul": k1_err, "quant_matmul4": k5_err,
+            "prefill_quant": k2_err, **dec_err}
 
 
 def parity_config():
@@ -486,7 +550,9 @@ def parity_config():
         tts=dataclasses.replace(cfg.tts, top_k=1))
 
 
-def phase_tick_parity():
+def phase_tick_parity(bits):
+    """The tick, card against CPU, with int8 (`bits` = 8) or int4 (4) LLM
+    weights drawn as the flagship server draws them."""
     import numpy as np
     import torch
 
@@ -497,7 +563,7 @@ def phase_tick_parity():
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = parity_config()
     params = audio_llm.init_params(cfg.audio_llm, seed=1, device="cuda",
-                                   quantize_llm=True)
+                                   quantize_llm=True, quant_bits=bits)
     gpu = ServingEngine(cfg, params, device="cuda")
     cpu = ServingEngine(cfg, tree_to(params, "cpu"), device="cpu")
     sids = ["p0", "p1"]
@@ -528,9 +594,9 @@ def phase_tick_parity():
             raise AssertionError(f"tick {tick}: KV lengths {gl} vs {cl}")
     if compared == 0:
         raise AssertionError("no user prediction was compared")
-    log(f"[tick-parity] 2-layer flagship widths, {n_ticks} dual ticks x 2 "
-        f"sessions: card vs cpu max |dprob| {worst:.3e} over {compared} "
-        f"probabilities (atol {atol}); KV lengths equal")
+    log(f"[tick-parity] int{bits} weights, 2-layer flagship widths, {n_ticks} "
+        f"dual ticks x 2 sessions: card vs cpu max |dprob| {worst:.3e} over "
+        f"{compared} probabilities (atol {atol}); KV lengths equal")
     return gpu, cpu, sids
 
 
@@ -823,6 +889,263 @@ def phase_response_path(engine, sids, smi):
             "first_ms": first_ms, "round_ms": round_ms, "step_ms": step_ms}
 
 
+SERVE_ARGV = ["--preset", "flagship", "--engine", "--quant", "4", "--kv_quant", "8",
+              "--max_sessions", "8", "--respond", "--seed", "0"]
+LINE_NOISE = 5e-4   # the system line's background, -66 dBFS
+
+
+def speech_surrogate(rng, n, sr=16000):
+    """Voiced-speech surrogate (a copy of synth_speech in the JAX package's
+    training/vad.py, on which the learned VAD's weights were trained): a
+    harmonic stack with a pitch contour, 1-2 formant resonances and 3-7 Hz
+    syllabic amplitude modulation, peak-normalised."""
+    import numpy as np
+
+    t = np.arange(n) / sr
+    f0 = rng.uniform(80, 260)
+    vibrato = f0 * 0.03 * np.sin(2 * np.pi * rng.uniform(4, 7) * t)
+    drift = f0 * 0.15 * np.sin(2 * np.pi * rng.uniform(0.3, 1.2) * t)
+    phase = 2 * np.pi * np.cumsum(f0 + vibrato + drift) / sr
+    formants = rng.uniform(300, 3000, size=rng.randint(1, 3))
+    bw = rng.uniform(80, 300, size=formants.shape)
+    sig = np.zeros(n)
+    for k in range(1, 13):
+        fk = k * f0
+        amp = sum(np.exp(-((fk - fc) ** 2) / (2 * b ** 2))
+                  for fc, b in zip(formants, bw)) + 0.05 / k
+        sig += amp * np.sin(k * phase + rng.uniform(0, 2 * np.pi))
+    sig = sig * (0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(3, 7) * t
+                                      + rng.uniform(0, 2 * np.pi)))
+    return (sig / (np.abs(sig).max() + 1e-8)).astype(np.float32)
+
+
+def user_streams(n_sessions, n):
+    """Per session: a quiet lead-in (1-3 chunks), 1.5 s of speech, 1.5 s of
+    silence, 6 s of speech, then silence. The speech is the surrogate above
+    at half scale: the learned VAD (the user default) does not fire on the
+    committed dev wavs (synthetic tiny-TTS speech; its probability stays
+    below 0.11 on 99% of their 224 ms chunks)."""
+    import numpy as np
+
+    out = []
+    for s in range(n_sessions):
+        rng = np.random.RandomState(100 + s)
+        out.append(np.concatenate([
+            np.zeros((1 + s % 3) * n, np.float32),
+            0.5 * speech_surrogate(rng, 24000), np.zeros(24000, np.float32),
+            0.5 * speech_surrogate(rng, 96000)]))
+    return out
+
+
+def phase_service(smi, int8_llm_bytes):
+    """The int4 serving path at full width and depth, through the port's
+    Server (bin/serve.py --engine --quant 4) and its DuplexService, stepped
+    here one step at a time (the ticker thread is stopped) so each step is
+    timed. 8 sessions stream speech as users (user_streams), 224 ms per
+    identity per step, and a quiet line as the system; once every user's first IPU has
+    closed, one step at threshold 0 makes the sessions inside their next IPU
+    speak (respond_fast_many), the users fall silent, and the service runs
+    the continuation rounds and the pooled sentences until flush_tts finds
+    the pool empty."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch.bin.serve import Server, get_args
+
+    torch.backends.cudnn.allow_tf32 = True   # serving default
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = Server(get_args(SERVE_ARGV))
+    server.stop_ticker()
+    if server._ticker_thread.is_alive():
+        raise AssertionError("the server's ticker thread did not stop")
+    svc, engine = server.service, server.service.engine
+    cfg = svc.cfg
+    svc.resp_threshold = 2.0   # nobody speaks until the threshold-0 step
+    torch.cuda.synchronize()
+    log(f"[serve] Server({' '.join(SERVE_ARGV)}) built in "
+        f"{time.perf_counter() - t0:.1f} s; ticker stopped")
+    llm = engine.core.params["llm"]
+    for name in ("q", "k", "v", "o", "gate", "up", "down"):
+        if "w_q4" not in llm["layers"][name]:
+            raise AssertionError(f"layer projection {name} is not int4")
+    int4_llm_bytes = llm_bytes(llm)
+
+    # random-weight text ids are almost all >= 256, which the byte tokenizer
+    # drops: each pooled sentence takes a fixed sentence as its text (its
+    # prefix stays its own hiddens), as phase 7 does
+    texts, count = fixed_sentences(), itertools.count()
+    prepare = svc._prepare_sentence
+    svc._prepare_sentence = lambda text, hids: prepare(
+        texts[next(count) % len(texts)], hids)
+
+    clock = {"front": 0.0, "vad": 0.0, "tick": 0.0}
+    activity = {"respond": 0, "continue": 0, "pool": 0}
+
+    def timed(fn, key, sync=False):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            clock[key] += time.perf_counter() - t
+            return out
+        return run
+
+    def counted(fn, key, when=lambda: True):
+        def run(*a, **k):
+            if when():
+                activity[key] += 1
+            return fn(*a, **k)
+        return run
+
+    svc._vad_stage = timed(svc._vad_stage, "front")
+    engine.tick = timed(engine.tick, "tick", sync=True)
+    engine.respond_fast_many = counted(engine.respond_fast_many, "respond")
+    engine.continue_segments_submit = counted(engine.continue_segments_submit,
+                                              "continue")
+    pool = svc._tts
+    pool.step_submit = counted(pool.step_submit, "pool", when=lambda: bool(pool.jobs))
+
+    sids = [f"u{i}" for i in range(cfg.serving.max_sessions)]
+    sinks = {sid: svc.open_session(sid) for sid in sids}
+    for fe in svc.sessions.values():
+        for v in fe.vad.values():
+            v.predict = timed(v.predict, "vad")
+    n = cfg.duplex.gating.samples_per_chunk
+    users = user_streams(len(sids), n)
+    rng = np.random.RandomState(0)
+    torch.cuda.synchronize()
+
+    def events(sid, name, identity=None):
+        return [e for e in sinks[sid].events_of(name)
+                if identity is None or e.get("identity") == identity]
+
+    zero_launches()
+    steps = []   # per step: kind, ms, front, vad, tick, launches
+    trigger, responders, pos = None, [], 0
+    while len(steps) < 400:
+        k = len(steps)
+        talking = trigger is None
+        for i, sid in enumerate(sids):
+            chunk = users[i][pos:pos + n] if talking else np.zeros(0, np.float32)
+            chunk = np.concatenate([chunk, np.zeros(n - len(chunk), np.float32)])
+            svc.enqueue_audio_data(sid, "user", {"audio": chunk})
+            svc.enqueue_audio_data(sid, "system", {
+                "audio": (LINE_NOISE * rng.randn(n)).astype(np.float32)})
+        pos += n
+        closed = all(any(e["status"] == "ipu_el" for e in events(sid, "vad_event", "user"))
+                     for sid in sids)
+        in_ipu = sum(svc.sessions[sid].vad["user"].in_speech for sid in sids)
+        fire = talking and closed and (in_ipu >= len(sids) // 2 or
+                                       (in_ipu and k >= 120))
+        if fire:
+            svc.resp_threshold = 0.0
+        for key in clock:
+            clock[key] = 0.0
+        for key in activity:
+            activity[key] = 0
+        before = read_launches()
+        t0 = time.perf_counter()
+        svc.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = read_launches()
+        if fire:
+            svc.resp_threshold = 2.0
+            trigger = k
+            responders = [sid for sid in sids if events(sid, "response_audio")]
+            if not responders:
+                raise AssertionError("the threshold-0 step made no session speak")
+        kind = "tick" if not any(activity.values()) else "response"
+        steps.append({"kind": kind, "ms": ms, "front": clock["front"] * 1e3,
+                      "vad": clock["vad"] * 1e3, "tick": clock["tick"] * 1e3,
+                      "launches": {key: after[key] - before[key] for key in after},
+                      **dict(activity)})
+        if trigger is not None and k > trigger:
+            idle = all(fe.resp is None and fe.tts_key is None and not fe.tts_queue
+                       for fe in svc.sessions.values())
+            if idle and pool.n_active == 0:
+                break
+    else:
+        raise AssertionError(f"the response did not finish in {len(steps)} steps")
+    svc.flush_tts()
+    if pool.n_active or any(fe.tts_queue or fe.tts_key is not None
+                            for fe in svc.sessions.values()):
+        raise AssertionError("flush_tts left sentences in the pool")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    # checks: events, audio, kernels
+    for sid in sids:
+        st = [e["status"] for e in events(sid, "vad_event", "user")]
+        if "ipu_sl" not in st or "ipu_el" not in st:
+            raise AssertionError(f"{sid}: user VAD events {st}")
+        upd = events(sid, "dialog_state_update")
+        if not upd or not all(np.isfinite([u["probs"]["state_1"], u["probs"]["state_2"]]).all()
+                              for u in upd):
+            raise AssertionError(f"{sid}: no finite dialog_state_update")
+        if events(sid, "error"):
+            raise AssertionError(f"{sid}: error events {events(sid, 'error')}")
+    audio = {sid: events(sid, "response_audio") for sid in responders}
+    for sid, chunks in audio.items():
+        for a in chunks:
+            pcm = a["pcm"]
+            if not (np.isfinite(pcm).all() and np.abs(pcm).max(initial=0.0) <= 1.0):
+                raise AssertionError(f"{sid}: response PCM not finite or outside [-1, 1]")
+    pooled = {sid: [a for a in audio[sid] if a["sr"] == 16000] for sid in responders}
+    if not any(pooled.values()):
+        raise AssertionError("no pooled sentence audio")
+    heard = [sid for sid in responders if events(sid, "vad_event", "system")]
+    if not heard:
+        raise AssertionError("no system-identity VAD event: the response audio "
+                             "did not re-enter as system audio")
+    ticks = [st for st in steps if st["kind"] == "tick"]
+    resp = [st for st in steps if st["kind"] == "response"]
+    for st in ticks:
+        if st["launches"]["quant_matmul"]:
+            raise AssertionError(f"K1 launched on a tick-only step: {st}")
+    for key in ("quant_matmul4", "prefill_quant"):
+        if not sum(st["launches"][key] for st in ticks):
+            raise AssertionError(f"{key} was not launched on the tick steps")
+    for key in ("quant_matmul", "decode_attention_blocked"):
+        if not sum(st["launches"][key] for st in resp):
+            raise AssertionError(f"{key} was not launched in the response")
+
+    def col(rows, key, skip=0):
+        return np.array([r[key] for r in rows[skip:]])
+
+    seconds = {sid: round(sum(a["pcm"].shape[-1] / a["sr"] for a in audio[sid]), 3)
+               for sid in responders}
+    per_tick = {key: sum(st["launches"][key] for st in ticks) / len(ticks)
+                for key in launches}
+    per_resp = {key: sum(st["launches"][key] for st in resp) / len(responders)
+                for key in launches}
+    log(f"[serve] ({smi}) {len(steps)} steps: {len(ticks)} tick-only, {len(resp)} "
+        f"with response work; threshold-0 step {trigger}; {len(responders)} "
+        f"sessions spoke ({', '.join(responders)}); system VAD heard the "
+        f"feedback in {len(heard)}")
+    log(f"[serve] tick-only step ({len(sids)} sessions, both identities; first "
+        f"5 excluded) {pct(col(ticks, 'ms', 5))} against {BUDGET_MS:.0f} ms; "
+        f"host frontend (VAD + gating + serializer) {pct(col(ticks, 'front', 5))}; "
+        f"VAD alone ({2 * len(sids)} streams) {pct(col(ticks, 'vad', 5))}; "
+        f"engine.tick {pct(col(ticks, 'tick', 5))}")
+    log(f"[serve] response steps {pct(col(resp, 'ms'))}; respond_fast_many "
+        f"steps {sum(st['respond'] for st in resp)}, continuation rounds "
+        f"{sum(st['continue'] for st in resp)}, pool steps "
+        f"{sum(st['pool'] for st in resp)}; audio per speaking session (s) {seconds}")
+    log(f"[serve] resident LLM weights: int4 {int4_llm_bytes / 2**30:.3f} GiB "
+        f"({int4_llm_bytes} B) vs int8 {int8_llm_bytes / 2**30:.3f} GiB "
+        f"({int8_llm_bytes} B); peak device memory {peak / 2**30:.2f} GiB")
+    log(f"[serve] launches {launches}; per tick-only step {per_tick}; per "
+        f"speaking session {per_resp}")
+    return {"server": server, "launches": launches, "per_tick": per_tick,
+            "per_response": per_resp}
+
+
 def k1_time(x, w_q, scale):
     """K1's kernel, plain and library times and its bound on x @ w."""
     import torch
@@ -863,6 +1186,78 @@ def k1_layer(layers, lm_head, N, g):
             total[key] += r[key]
     total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["ops"])
     return total
+
+
+def k5_time(x, w_q4, scale4, group):
+    """K5's kernel, plain and library times and its bound on one projection.
+    The library call is torch._weight_int4pack_mm on the same weights
+    repacked for it (transposed to [O, K/2], even input row in the high
+    nibble, zero points 0); it is timed and its result held to the plain
+    version, and if this torch build refuses it, its error is returned."""
+    import torch
+
+    from freeze_omni_tpu_torch.ops import quant_matmul as qm
+
+    N, K = x.shape
+    O = w_q4.shape[1]
+    r = {"ms": cuda_time_ms(lambda: qm.quant_matmul4(x, w_q4, scale4, group)),
+         "plain_ms": cuda_time_ms(
+             lambda: qm.quant_matmul4_reference(x, w_q4, scale4, group), iters=10),
+         "library_ms": None, "library_error": None,
+         "bytes": K * O // 2 + 4 * scale4.numel() + 2 * N * K + 2 * N * O,
+         "ops": 2 * N * K * O}
+    try:
+        w_t = w_q4.t().contiguous()
+        packed = torch._convert_weight_to_int4pack(((w_t & 0xF) << 4) | (w_t >> 4), 8)
+        sz = torch.stack([scale4, torch.zeros_like(scale4)], -1).to(torch.bfloat16)
+        lib = torch._weight_int4pack_mm(x, packed, group, sz)
+        err = float((lib.float() - qm.quant_matmul4_reference(
+            x, w_q4, scale4, group).float()).abs().max())
+        r["library_ms"] = cuda_time_ms(
+            lambda: torch._weight_int4pack_mm(x, packed, group, sz))
+        r["library_max_abs_err"] = err
+        del w_t, packed, sz, lib
+    except RuntimeError as e:   # the yardstick only: never on the port's path
+        r["library_error"] = str(e).splitlines()[0][:200]
+    return r
+
+
+def k5_layer(layers, N, g):
+    """One layer's seven int4 projections at N rows."""
+    import torch
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+    errors = []
+    for name in ("q", "k", "v", "o", "gate", "up", "down"):
+        w_q4, scale4 = layers[name]["w_q4"][0], layers[name]["scale4"][0]
+        Kp, O = w_q4.shape
+        group = 2 * Kp // scale4.shape[0]
+        x = torch.randn((N, 2 * Kp), generator=g, device="cuda").to(torch.bfloat16)
+        r = k5_time(x, w_q4, scale4, group)
+        b_ms, b_by = bound(r["bytes"], r["ops"])
+        lib = (f"{r['library_ms']:.4f} ms (max |d| vs plain "
+               f"{r['library_max_abs_err']:.3e})" if r["library_error"] is None
+               else f"refused: {r['library_error']}")
+        log(f"[time] K5 {name} N={N} K={2 * Kp} O={O} group={group}: kernel "
+            f"{r['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain "
+            f"{r['plain_ms']:.4f} ms, torch._weight_int4pack_mm {lib}")
+        for key in ("ms", "plain_ms", "bytes", "ops"):
+            total[key] += r[key]
+        if r["library_error"] is None:
+            total["library_ms"] += r["library_ms"]
+        else:
+            errors.append(r["library_error"])
+    total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["ops"])
+    if errors:
+        total["library_ms"], total["library_error"] = None, errors[0]
+    return total
+
+
+def llm_bytes(llm):
+    """Resident bytes of an LLM parameter tree."""
+    if isinstance(llm, dict):
+        return sum(llm_bytes(v) for v in llm.values())
+    return llm.numel() * llm.element_size()
 
 
 def k2_time(kv, qend, H, g):
@@ -1014,8 +1409,37 @@ def phase_kernel_times(engine, tick, resp, errs, smi):
     ]
 
 
+def phase_k5_times(serve, errs, smi):
+    """K5 on the int4 server's layer-0 projections: a tick (N = 8 sessions
+    x 29 tokens) and a text-decode step (N = 8)."""
+    import torch
+
+    engine = serve["server"].service.engine
+    layers = engine.core.params["llm"]["layers"]
+    B = engine.store.max_sessions
+    g = torch.Generator(device="cuda").manual_seed(11)
+    k5 = k5_layer(layers, B * 29, g)
+    k5_dec = k5_layer(layers, B, g)
+    short = {k: k5_dec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}
+    return {"name": "quant_matmul4 (K5, one layer's 7 int4 projections at N=232)",
+            "route": "cuda", "source": "freeze_omni_tpu_torch/csrc/quant_matmul4.cu",
+            "replaces": "freeze_omni_tpu/ops/quant_matmul.py:162",
+            "launches": serve["launches"]["quant_matmul4"],
+            "max_abs_err": errs["quant_matmul4"], "ms": k5["ms"],
+            "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+            "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
+            "library_error": k5.get("library_error"),
+            "launches_int4_service": serve["launches"]["quant_matmul4"],
+            "launches_per_tick": serve["per_tick"]["quant_matmul4"],
+            "launches_per_response": serve["per_response"]["quant_matmul4"],
+            "card": smi, "decode_step_N8": short}
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1027,13 +1451,27 @@ def main() -> int:
     name, count, smi = phase_device()
     phase_build()
     errs = phase_kernel_parity()
-    gpu, cpu, sids = phase_tick_parity()
+    gpu, cpu, sids = phase_tick_parity(8)
     phase_response_parity(gpu, cpu, sids)
     del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_tick_parity(4)
+    gc.collect()
     torch.cuda.empty_cache()
     engine, sids, launches, per_tick = phase_tick_path()
+    int8_llm_bytes = llm_bytes(engine.core.params["llm"])
     resp = phase_response_path(engine, sids, smi)
     kernels = phase_kernel_times(engine, (launches, per_tick), resp, errs, smi)
+    del engine, resp
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = phase_service(smi, int8_llm_bytes)
+    for entry, key in zip(kernels, ("quant_matmul", "prefill_quant",
+                                    "decode_attention", "decode_attention_blocked")):
+        entry["launches_int4_service"] = serve["launches"][key]
+        entry["launches"] += serve["launches"][key]
+    kernels.insert(1, phase_k5_times(serve, errs, smi))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,359 @@
+"""Duplex dialog-state server of the PyTorch port (counterpart of
+freeze_omni_tpu/bin/serve.py in its --engine mode).
+
+A websocket server that hosts duplex sessions on one continuous-batching
+DuplexService (one batched step per tick for every session) and streams the
+monitoring-GUI event catalog (VAD state updates, VAD events, dialog-state
+updates, dialog_ss callbacks, and with --respond the spoken response) as JSON
+messages.
+
+Protocol (JSON messages):
+  client -> server:
+    {"type": "start_session", "sid": str, "role": str?}
+    {"type": "audio", "identity": "user"|"system", "pcm_b64": <s16le b64>,
+     "sr": int (any rate; non-16k streams through a per-identity
+     resampler), "time_stamp": float?}
+    {"type": "reset"} (a no-op in engine mode) | {"type": "stop"}
+  server -> client:
+    {"event": "session_ready", "sid": ...}
+    {"event": "vad_state_update"|"vad_event"|"dialog_state_update"|
+     "dialog_ss_callback"|"response_text"|"response_audio"|..., ...payload}
+
+Run (the card by default; --device cpu runs the plain PyTorch versions):
+  python -m freeze_omni_tpu_torch.bin.serve --preset flagship --engine \\
+      --quant 4 --kv_quant 8 --respond --port 8765
+  python -m freeze_omni_tpu_torch.bin.serve --preset tiny --engine --device cpu
+
+`--preset flagship` serves Qwen2-7B widths with seeded random weights drawn
+on the device in weight-only int8 (default) or int4 (`--quant 4`). The
+per-session path (no --engine), checkpoints, reference configs, voice
+prompts, LoRA, session snapshots and multi-GPU serving are not in the port
+yet: each of their flags exits naming its item in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import base64
+import json
+import sys
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..config import flagship_system, tiny_system
+
+MONITOR_HTML = Path(__file__).resolve().parents[2] / "freeze_omni_tpu" / "bin" / "monitor.html"
+
+_PER_SESSION = "ROADMAP.md D1 (the per-session path: InferencePipeline, DuplexSession)"
+_CHECKPOINT = "ROADMAP.md D2 (checkpoint loading: utils/factory.py, offline_infer)"
+_WAITING = (   # flag given -> SystemExit naming the ROADMAP item it waits for
+    ("config", "ROADMAP.md D3 (reference app YAML: load_reference_app_yaml)"),
+    ("model_path", _CHECKPOINT),
+    ("llm_path", _CHECKPOINT),
+    ("voice_wav", "ROADMAP.md D4 (voice prompts: codec.encode, extract_global_tokens)"),
+    ("lora", "ROADMAP.md D4 (LoRA merge: models/lora.py)"),
+    ("lora_scale", "ROADMAP.md D4 (LoRA merge: models/lora.py)"),
+    ("state_dir", "ROADMAP.md D5 (session export/import)"),
+    ("resume_grace", "ROADMAP.md D5 (session export/import)"),
+    ("tp", "ROADMAP.md D9 (multi-GPU serving)"),
+    ("coordinator", "ROADMAP.md D9 (multi-GPU serving)"),
+    ("num_hosts", "ROADMAP.md D9 (multi-GPU serving)"),
+    ("host_id", "ROADMAP.md D9 (multi-GPU serving)"),
+)
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description="freeze-omni duplex server (PyTorch)")
+    p.add_argument("--preset", default="flagship", choices=["tiny", "flagship"])
+    p.add_argument("--device", default=None,
+                   help="torch device to serve on (default: the CUDA card; "
+                        "'cpu' runs the kernels' plain versions)")
+    p.add_argument("--quant", default=None, type=int, choices=[0, 8, 4],
+                   help="weight-only quantization bits of the flagship LLM "
+                        "(0 = bf16; default 8). Ignored by --preset tiny")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8765)
+    p.add_argument("--max_sessions", type=int, default=8)
+    p.add_argument("--pipeline_ticks", action="store_true",
+                   help="double-buffered serving: enqueue tick N+1 before "
+                        "fetching tick N's predictions (decisions run one "
+                        "224 ms tick late)")
+    p.add_argument("--kv_quant", type=int, default=0, choices=[0, 8],
+                   help="int8-quantize the per-session LLM KV cache "
+                        "(per-token-per-head scales)")
+    p.add_argument("--respond", action="store_true",
+                   help="speak back on dialog_ss (response_text / "
+                        "response_audio events)")
+    p.add_argument("--resp_threshold", type=float, default=None,
+                   help="override dialog_state_decision.resp_threshold")
+    p.add_argument("--no_tts_warmup", action="store_true",
+                   help="skip the synthesis pool warmup at boot (the eager "
+                        "pool has nothing to compile)")
+    p.add_argument("--http_port", type=int, default=0,
+                   help="also serve the monitoring GUI (monitor.html) over "
+                        "HTTP on this port")
+    p.add_argument("--engine", action="store_true",
+                   help="serve all sessions through the continuous-batching "
+                        "DuplexService (required: the per-session path is "
+                        "not in the port yet)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--timeout", type=float, default=None,
+                   help="stop serving after N seconds (for smoke tests)")
+    # flags of the JAX server that wait for later work (see _WAITING)
+    for flag in ("config", "model_path", "llm_path", "voice_wav", "lora",
+                 "state_dir", "coordinator"):
+        p.add_argument(f"--{flag}", default=None)
+    p.add_argument("--lora_scale", type=float, default=None)
+    p.add_argument("--resume_grace", type=float, default=None)
+    for flag in ("tp", "num_hosts", "host_id"):
+        p.add_argument(f"--{flag}", type=int, default=None)
+    return p.parse_args(argv)
+
+
+class Server:
+    def __init__(self, args):
+        from ..models import audio_llm
+        from ..runtime.service import DuplexService
+        from ..utils.device import resolve_device
+
+        for flag, item in _WAITING:
+            if getattr(args, flag) is not None:
+                raise SystemExit(f"--{flag} is not in the PyTorch port yet: "
+                                 f"it waits for {item}")
+        if not args.engine:
+            raise SystemExit("serving without --engine is not in the PyTorch "
+                             f"port yet: it waits for {_PER_SESSION}")
+        self.args = args
+        self.device = resolve_device(args.device)
+        self.cfg = tiny_system() if args.preset == "tiny" else flagship_system()
+        params = None
+        if args.preset == "flagship":
+            # weightless full-scale serving (seeded random params): the LLM
+            # is drawn directly in weight-only int8 or int4, never as a bf16
+            # tree; --quant 0 draws it in bf16
+            quant = 8 if args.quant is None else args.quant
+            params = audio_llm.init_params(
+                self.cfg.audio_llm, seed=args.seed, device=self.device,
+                llm_dtype=torch.bfloat16, quantize_llm=bool(quant),
+                quant_bits=quant or 8)
+            params = audio_llm.cast_frontend(params, torch.bfloat16)
+            print(f"weightless flagship: random params, "
+                  f"{'int%d weight-only' % quant if quant else 'bf16'} LLM",
+                  flush=True)
+        import dataclasses
+
+        if args.resp_threshold is not None:
+            self.cfg = dataclasses.replace(
+                self.cfg, duplex=dataclasses.replace(
+                    self.cfg.duplex, resp_threshold=args.resp_threshold))
+        self.cfg = dataclasses.replace(self.cfg, serving=dataclasses.replace(
+            self.cfg.serving, max_sessions=args.max_sessions,
+            pipeline_ticks=bool(args.pipeline_ticks),
+            kv_quant_bits=args.kv_quant or None))
+        svc_tts = self._init_tts_params() if args.respond else None
+        # full-scale serving runs half precision (bf16 KV and frontend); the
+        # tiny preset stays f32
+        kv_dtype = torch.float32 if args.preset == "tiny" else torch.bfloat16
+        self.service = DuplexService(self.cfg, seed=args.seed,
+                                     tts_params=svc_tts, params=params,
+                                     kv_dtype=kv_dtype, device=self.device)
+        if svc_tts is not None and not args.no_tts_warmup:
+            n = self.service.warmup_synthesis()
+            print(f"synthesis pool warmup: {n} programs", flush=True)
+        self._svc_stop = threading.Event()
+        self._ticker_thread = threading.Thread(target=self._ticker, daemon=True)
+        self._ticker_thread.start()
+
+    def _ticker(self):
+        import time
+
+        last_err = 0.0
+        while not self._svc_stop.is_set():
+            try:
+                worked = self.service.step()
+            except Exception as e:  # a poisoned tick must not kill the server
+                now = time.monotonic()
+                if now - last_err > 5.0:  # rate-limited
+                    print(f"ticker error: {e!r}", file=sys.stderr)
+                    last_err = now
+                worked = False
+                self._svc_stop.wait(0.25)  # back off while failing
+            if not worked:
+                self._svc_stop.wait(0.01)
+
+    def stop_ticker(self, timeout: float = 30.0) -> None:
+        """Stop the service's tick thread (the caller may then step
+        `self.service` itself)."""
+        self._svc_stop.set()
+        self._ticker_thread.join(timeout=timeout)
+
+    def _init_tts_params(self):
+        """Seeded random speech decoder + codec (decode half) on the device."""
+        from ..models import codec as codec_mod
+        from ..models import speech_decoder as sd
+
+        g = torch.Generator(device=self.device).manual_seed(self.args.seed + 7)
+        return {"decoder": sd.init_params(self.cfg.tts.decoder, g,
+                                          device=self.device),
+                "codec": codec_mod.init_params(self.cfg.tts.codec, g,
+                                               device=self.device)}
+
+    async def handler(self, ws):
+        from ..duplex.events import EventSink
+        from ..runtime.engine import CapacityError
+
+        loop = asyncio.get_running_loop()
+        outbox: "asyncio.Queue" = asyncio.Queue()
+        sink = EventSink()
+        for ev in sink.EVENTS:
+            def fwd(payload, ev=ev):
+                try:
+                    loop.call_soon_threadsafe(
+                        outbox.put_nowait, {"event": ev, **_jsonable(payload)})
+                except RuntimeError:  # the loop closed with the connection
+                    pass
+            sink.on(ev, fwd)
+
+        svc_sid = None
+        sender = asyncio.create_task(self._sender(ws, outbox))
+        try:
+            async for raw in ws:
+                msg = json.loads(raw)
+                t = msg.get("type")
+                if t == "start_session":
+                    sid = msg.get("sid", "") or f"anon-{id(ws)}"
+                    if svc_sid is not None:
+                        self.service.close_session(svc_sid)
+                        svc_sid = None
+                    try:
+                        self.service.open_session(sid, sink=sink)
+                    except RuntimeError as e:  # no free slots / device OOM
+                        err = {"event": "error", "message": str(e)}
+                        if isinstance(e, CapacityError):
+                            # structured capacity refusal: clients can tell
+                            # "server full" from a protocol error
+                            err["kind"] = "capacity"
+                            err["active_sessions"] = e.active_sessions
+                        await ws.send(json.dumps(err))
+                        continue
+                    svc_sid = sid
+                    await ws.send(json.dumps(
+                        {"event": "session_ready", "sid": sid}))
+                elif t == "audio":
+                    if svc_sid is None:
+                        await ws.send(json.dumps(
+                            {"event": "error", "message": "no session"}))
+                        continue
+                    pcm = base64.b64decode(msg["pcm_b64"])
+                    self.service.enqueue_audio_data(
+                        svc_sid, msg["identity"],
+                        {"audio": pcm, "sr": msg.get("sr", 16000),
+                         "enc": "s16le", "time_stamp": msg.get("time_stamp")})
+                elif t == "reset":
+                    pass  # resets a per-session context; engine mode has none
+                elif t == "stop":
+                    break
+                else:
+                    await ws.send(json.dumps(
+                        {"event": "error", "message": f"unknown type {t!r}"}))
+        finally:
+            sender.cancel()
+            if svc_sid is not None:
+                self.service.close_session(svc_sid)
+
+    async def _sender(self, ws, outbox):
+        while True:
+            msg = await outbox.get()
+            try:
+                await ws.send(json.dumps(msg))
+            except Exception:  # the connection closed: stop forwarding
+                return
+
+    def _start_http(self):
+        """Monitoring GUI over plain HTTP: the JAX package's monitor.html,
+        served unchanged apart from its websocket port."""
+        import http.server
+        import os
+
+        page = MONITOR_HTML.read_text().replace("window.WS_PORT || 8765",
+                                                str(self.args.port))
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(h):
+                # event dumps for the GUI's ?events= replay mode: basename-
+                # only .jsonl from the server's cwd (no traversal)
+                path = h.path.split("?")[0]
+                if path.endswith(".jsonl") and "/" not in path.strip("/"):
+                    fp = os.path.join(os.getcwd(), path.strip("/"))
+                    if os.path.isfile(fp):
+                        h.send_response(200)
+                        h.send_header("Content-Type", "application/jsonl")
+                        h.end_headers()
+                        with open(fp, "rb") as f:
+                            h.wfile.write(f.read())
+                        return
+                    h.send_response(404)
+                    h.end_headers()
+                    return
+                h.send_response(200)
+                h.send_header("Content-Type", "text/html; charset=utf-8")
+                h.end_headers()
+                h.wfile.write(page.encode())
+
+            def log_message(h, *a):
+                pass
+
+        srv = http.server.ThreadingHTTPServer(
+            (self.args.host, self.args.http_port), Handler)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        print(f"monitor GUI on http://{self.args.host}:{self.args.http_port}",
+              flush=True)
+        return srv
+
+    async def run(self):
+        import websockets
+
+        http_srv = self._start_http() if self.args.http_port else None
+        try:
+            async with websockets.serve(self.handler, self.args.host,
+                                        self.args.port):
+                print(f"serving on ws://{self.args.host}:{self.args.port}",
+                      flush=True)
+                if self.args.timeout:
+                    await asyncio.sleep(self.args.timeout)
+                else:
+                    await asyncio.Future()
+        finally:
+            self.stop_ticker()
+            if http_srv is not None:
+                http_srv.shutdown()
+
+
+def _jsonable(payload: dict) -> dict:
+    out = {}
+    for k, v in payload.items():
+        if isinstance(v, (np.floating, np.integer)):
+            out[k] = v.item()
+        elif isinstance(v, np.ndarray):
+            if k == "pcm":  # responder audio travels as base64 s16le
+                out["pcm_b64"] = base64.b64encode(
+                    (np.clip(v, -1, 1) * 32767).astype("<i2").tobytes()
+                ).decode()
+            # other raw arrays are not rebroadcast over the event stream
+        elif isinstance(v, dict):
+            out[k] = _jsonable(v)
+        else:
+            out[k] = v
+    return out
+
+
+def main(argv=None):
+    asyncio.run(Server(get_args(argv)).run())
+
+
+if __name__ == "__main__":
+    main()

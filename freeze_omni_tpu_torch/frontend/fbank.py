@@ -6,6 +6,10 @@ on explicitly framed, zero-padded windows) -> power -> mel matmul -> log, in
 float32. Runs on whatever device the waveform lies on; the chunkers call it
 on the host. Both variants the reference uses are covered: 25 ms / 10 ms
 (offline) and 16 ms / 8 ms (duplex), dither 0, snip-edges framing.
+
+`fbank_ref` is the numpy version of the same algorithm (a copy of the JAX
+module's golden); the learned VAD computes its 40-bin `VAD_FBANK` features
+with it on the host.
 """
 
 from __future__ import annotations
@@ -20,6 +24,11 @@ from ..config import FbankConfig
 
 # float32 machine epsilon: Kaldi's log floor
 _EPS = float(np.finfo(np.float32).eps)
+
+# the learned VAD's features: 16 ms / 8 ms frames, 40 mel bins (the JAX
+# package's training/vad.py trains the committed weights on these)
+VAD_FBANK = FbankConfig(frame_length_ms=16.0, frame_shift_ms=8.0,
+                        num_mel_bins=40)
 
 
 def _mel(freq):
@@ -78,6 +87,31 @@ def num_frames(cfg: FbankConfig, num_samples: int) -> int:
     if num_samples < cfg.frame_length:
         return 0
     return 1 + (num_samples - cfg.frame_length) // cfg.frame_shift
+
+
+def fbank_ref(waveform: np.ndarray, cfg: FbankConfig = FbankConfig()) -> np.ndarray:
+    """Kaldi fbank in numpy. waveform: [n] float (already scaled by 32768 as
+    the reference does). Returns [m, num_mel_bins] float32."""
+    n = waveform.shape[-1]
+    m = num_frames(cfg, n)
+    fl, fs = cfg.frame_length, cfg.frame_shift
+    frames = np.stack([waveform[i * fs : i * fs + fl] for i in range(m)]).astype(np.float32)
+
+    if cfg.remove_dc_offset:
+        frames = frames - frames.mean(axis=1, keepdims=True)
+    if cfg.preemphasis != 0.0:
+        prev = np.concatenate([frames[:, :1], frames[:, :-1]], axis=1)
+        frames = frames - cfg.preemphasis * prev
+    frames = frames * _window(cfg)[None, :]
+
+    n_fft = cfg.padded_window_size
+    padded = np.zeros((m, n_fft), dtype=np.float32)
+    padded[:, :fl] = frames
+    spec = np.abs(np.fft.rfft(padded, axis=1)).astype(np.float32)
+    if cfg.use_power:
+        spec = spec**2
+    mel = spec @ mel_banks(cfg).T
+    return np.log(np.maximum(mel, _EPS)).astype(np.float32)
 
 
 def fbank(waveform: torch.Tensor, cfg: FbankConfig = FbankConfig()) -> torch.Tensor:

@@ -55,11 +55,12 @@ def init_session(cfg: AudioLLMConfig, batch: int = 1, kv_dtype=torch.float32,
 
 
 def init_params(cfg: AudioLLMConfig, seed: int = 0, device=None,
-                llm_dtype=torch.float32, quantize_llm: bool = False) -> dict:
+                llm_dtype=torch.float32, quantize_llm: bool = False,
+                quant_bits: int = 8) -> dict:
     """Random init from a `torch.Generator` seeded with `seed`, on `device`
     (None: the CUDA card; raises without one). quantize_llm draws the frozen
-    backbone directly in weight-only int8 (ops/quant.init_quantized_llm),
-    never holding the bf16 tree."""
+    backbone directly in weight-only int8 or int4 (`quant_bits`;
+    ops/quant.init_quantized_llm), never holding the bf16 tree."""
     from ..ops.quant import init_quantized_llm
 
     device = resolve_device(device)
@@ -70,7 +71,8 @@ def init_params(cfg: AudioLLMConfig, seed: int = 0, device=None,
         "encoder_system": encoder_mod.init_params(cfg.encoder, gen, device=device),
         "adapter_user": adapter_mod.init_params(cfg.adapter, gen, device=device),
         "adapter_system": adapter_mod.init_params(cfg.adapter, gen, device=device),
-        "llm": (init_quantized_llm(cfg.llm, gen, device) if quantize_llm
+        "llm": (init_quantized_llm(cfg.llm, gen, device, bits=quant_bits)
+                if quantize_llm
                 else qwen2.init_params(cfg.llm, gen, dtype=llm_dtype, device=device)),
         "predictor": linear_init(gen, D, cfg.num_states, device=device),
         "task_embeddings": torch.randn((cfg.task_num, D), generator=gen,

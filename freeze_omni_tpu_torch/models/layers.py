@@ -41,19 +41,24 @@ def linear_init(gen, in_dim: int, out_dim: int, bias: bool = True,
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """y = x @ w (+ b). Dispatches on the leaf names like the JAX version:
-    `w_q` + `scale` is weight-only int8 and always goes through the int8
-    matmul wrapper (its CUDA kernel for a CUDA tensor, its plain version for a
-    CPU tensor)."""
+    `w_q4` + `scale4` is grouped int4 and `w_q` + `scale` weight-only int8;
+    each always goes through its matmul wrapper (K5 or K1 for a CUDA tensor,
+    the plain version for a CPU tensor). Both kernels take dense rows, so a
+    strided view (e.g. the last position of a prefill, hidden[:, -1]) is
+    copied."""
     if "w_q4" in p:
-        raise NotImplementedError(
-            "int4 weight-only linear is not ported yet (ROADMAP queue B)")
-    if "w_q" in p:
+        from ..ops.quant_matmul import quant_matmul4
+
+        Kp, O = p["w_q4"].shape
+        group = (2 * Kp) // p["scale4"].shape[-2]
+        lead = x.shape[:-1]
+        y = quant_matmul4(x.reshape(-1, 2 * Kp).contiguous(), p["w_q4"],
+                          p["scale4"], group).reshape(*lead, O)
+    elif "w_q" in p:
         from ..ops.quant_matmul import quant_matmul
 
         K, O = p["w_q"].shape
         lead = x.shape[:-1]
-        # the kernel takes dense rows; a strided view (e.g. the last position
-        # of a prefill, hidden[:, -1]) is copied
         y = quant_matmul(x.reshape(-1, K).contiguous(), p["w_q"],
                          p["scale"]).reshape(*lead, O)
     else:

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".kernel_build"
-KERNELS = ("quant_matmul", "prefill_quant", "decode_attention")
+KERNELS = ("quant_matmul", "quant_matmul4", "prefill_quant", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -38,9 +38,10 @@ BUCKET = 32
 
 
 class _Job:
-    __slots__ = ("key", "buf", "pcm", "left", "right", "done_decode", "total")
+    __slots__ = ("key", "buf", "pcm", "left", "right", "done_decode", "total",
+                 "room")
 
-    def __init__(self, key, padding: int):
+    def __init__(self, key, padding: int, room: int):
         self.key = key
         self.buf = np.zeros((0,), np.int64)
         self.pcm = np.zeros((1, 1, 0), np.float32)
@@ -48,6 +49,7 @@ class _Job:
         self.right = padding
         self.done_decode = False
         self.total = 0
+        self.room = room   # codec tokens its KV row holds after the preamble
 
 
 def _pad_rows(arrays: List[Optional[np.ndarray]], dim: int):
@@ -127,6 +129,19 @@ class BatchedTTS:
         if not todo:
             return 0
         n = len(todo)
+        # the preamble writes bos + the hidden block + the prefix (when the
+        # decoder keeps prefix KV) into the row; codec tokens follow, one
+        # segment per step, and slot max_kv_len - 1 is the scratch slot
+        rooms = []
+        for key, h, p in todo:
+            used = 1 + h.shape[1] + (p.shape[1] if p is not None
+                                     and self._dcfg.use_prefix_kv else 0)
+            rooms.append(self.max_kv_len - 1 - used)
+            if rooms[-1] < self.cfg.codec_chunk_size:
+                raise ValueError(
+                    f"sentence {key!r} needs {used} decoder KV slots before its "
+                    f"first {self.cfg.codec_chunk_size} codec tokens; the pool's "
+                    f"rows hold {self.max_kv_len}")
         idim = todo[0][1].shape[2]
         dparams = self.params["decoder"]
         with torch.no_grad():
@@ -145,7 +160,8 @@ class BatchedTTS:
             idx = [self._free.pop(0) for _ in range(n)]
             self._scatter(rows, idx)
             for i, (key, _h, _p) in enumerate(todo):
-                self.jobs[idx[i]] = _Job(key, self.cfg.codec_padding_size)
+                self.jobs[idx[i]] = _Job(key, self.cfg.codec_padding_size,
+                                         rooms[i])
                 self.active[idx[i]] = True
         return n
 
@@ -190,6 +206,12 @@ class BatchedTTS:
         if not self.jobs:
             return lambda: {}
         n_steps = n_steps or self.cfg.codec_chunk_size
+        with self._lock:
+            full = [job.key for job in self.jobs.values()
+                    if job.total + n_steps > job.room]
+        if full:
+            raise ValueError(f"a step of {n_steps} tokens overflows the KV rows "
+                             f"of {full}")
         with self._lock, torch.no_grad():
             active = torch.from_numpy(self.active.copy()).to(self.device)
             toks, self.state = sd.decode_segment(
@@ -198,9 +220,9 @@ class BatchedTTS:
                 penalty_window=self.cfg.penalty_window_size,
                 penalty=self.cfg.penalty, active=active)
             jobs_now = list(self.jobs.items())
-        return lambda: self._deliver_step(toks, jobs_now)
+        return lambda: self._deliver_step(toks, jobs_now, n_steps)
 
-    def _deliver_step(self, toks, jobs_now
+    def _deliver_step(self, toks, jobs_now, n_steps: int
                       ) -> Dict[object, List[Tuple[np.ndarray, bool]]]:
         cfg = self.cfg
         dcfg = self._dcfg
@@ -214,7 +236,10 @@ class BatchedTTS:
         windows: List[Tuple[_Job, np.ndarray, bool, int]] = []
         for row, job in jobs_now:
             t = toks[row]
-            stop = np.where((t == dcfg.eos_id) | (t == dcfg.pad_id))[0]
+            # any special id (bos/sos/eos/pad >= codec_vocab) ends the
+            # sentence, as in fastpath.first_response: the codec has no
+            # embedding for one
+            stop = np.where(t >= dcfg.codec_vocab)[0]
             if stop.size:
                 t = t[: stop[0]]
                 job.done_decode = True
@@ -225,6 +250,10 @@ class BatchedTTS:
                 t = t[:budget]
                 job.done_decode = True
             job.total += t.shape[0]
+            if job.total + n_steps > job.room:
+                # the next segment would not fit the row's KV: the sentence
+                # ends here, as at its token budget
+                job.done_decode = True
             job.buf = np.concatenate([job.buf, t.astype(np.int64)])
             # window boundaries depend on the token count alone, so a full
             # window before eos still comes out as a steady window

@@ -170,7 +170,9 @@ class StreamingTTS:
                     penalty=cfg.penalty)
             toks = toks[0].cpu().numpy().astype(np.int64)
             total += n_steps
-            eos_pos = np.where((toks == dcfg.eos_id) | (toks == dcfg.pad_id))[0]
+            # any special id (>= codec_vocab) ends the sentence, as in
+            # fastpath.first_response: the codec has no embedding for one
+            eos_pos = np.where(toks >= dcfg.codec_vocab)[0]
             if eos_pos.size:
                 toks = toks[: eos_pos[0]]
                 done = True

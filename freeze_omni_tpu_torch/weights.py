@@ -2,9 +2,11 @@
 
 The port keeps the JAX layouts leaf for leaf (linear `w` is [in, out], layer
 and encoder-block leaves are stacked [L, ...], int8 leaves are `w_q` [K, O]
-plus `scale` [O], the int8 embedding is per row), so the bridge is a plain
-map over the tree: nested dicts, lists and tuples of numpy arrays become the
-same structure of tensors, and back.
+plus `scale` [O], int4 leaves are packed uint8 `w_q4` [K/2, O] plus f32
+`scale4` [K/group, O], the int8 embedding is per row), so the bridge is a
+plain map over the tree: nested dicts, lists and tuples of numpy arrays
+become the same structure of tensors, and back, with dtypes kept (int8,
+uint8 and f32 leaves round-trip bit for bit).
 
 A JAX tree reaches the port as numpy (for example from the JAX package's
 checkpoint loader, or `np.asarray` over a live tree); the port never imports

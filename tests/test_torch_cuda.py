@@ -78,6 +78,69 @@ def test_linear_takes_a_strided_activation(cuda):
     torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
+def _q4_inputs(N, K, O, group, dtype, device, seed=0):
+    """Packed bytes drawn over all of 0..255, so both nibbles take every
+    value, 0 (weight -8) included."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((N, K), generator=g).to(dtype)
+    w_q4 = torch.randint(0, 256, (K // 2, O), generator=g, dtype=torch.uint8)
+    scale4 = (torch.rand((K // group, O), generator=g) + 0.5) / (7.0 * K ** 0.5)
+    return x.to(device), w_q4.to(device), scale4.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,K,O,group", [
+    (1, 3584, 512, 64), (8, 3584, 3584, 64), (89, 3584, 18944, 64),
+    (232, 18944, 3584, 64), (1856, 3584, 512, 64),
+    (232, 3584, 3584, 128),    # the coarser group of tests/test_quant.py
+    (8, 3584, 152064, 64),     # the int4 lm_head of quantize_llm_params
+    (7, 200, 131, 10),         # K not a multiple of the K step; O % 4 != 0
+    (65, 96, 130, 32),         # ragged N just past one row block
+])
+def test_quant_matmul4_matches_plain(cuda, dtype, N, K, O, group):
+    x, w_q4, scale4 = _q4_inputs(N, K, O, group, dtype, cuda)
+    before = qm.quant_matmul4.launches
+    y = qm.quant_matmul4(x, w_q4, scale4, group)
+    torch.cuda.synchronize()
+    assert qm.quant_matmul4.launches == before + 1
+    ref = qm.quant_matmul4_reference(x, w_q4, scale4, group)
+    assert y.dtype == dtype and y.shape == (N, O)
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_linear_takes_a_strided_activation_int4(cuda):
+    """A w_q4 leaf goes through K5 for a strided view like a dense one."""
+    from freeze_omni_tpu_torch.models.layers import linear
+
+    _, w_q4, scale4 = _q4_inputs(1, 128, 130, 64, torch.bfloat16, cuda)
+    hidden = torch.randn((3, 5, 128), device=cuda).to(torch.bfloat16)
+    b = torch.randn(130, device=cuda)
+    k1, k5 = qm.quant_matmul.launches, qm.quant_matmul4.launches
+    y = linear({"w_q4": w_q4, "scale4": scale4, "b": b}, hidden[:, -1])
+    torch.cuda.synchronize()
+    assert qm.quant_matmul4.launches == k5 + 1
+    assert qm.quant_matmul.launches == k1
+    assert y.dtype == torch.bfloat16
+    ref = qm.quant_matmul4_reference(hidden[:, -1].contiguous(), w_q4, scale4,
+                                     64) + b.to(torch.bfloat16)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_quant_matmul4_rejects_what_the_kernel_does_not_take(cuda):
+    x, w_q4, scale4 = _q4_inputs(4, 128, 64, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.quant_matmul4(x.t().contiguous().t(), w_q4, scale4, 64)
+    with pytest.raises(TypeError):
+        qm.quant_matmul4(x.half(), w_q4, scale4, 64)
+    with pytest.raises(TypeError, match="uint8"):
+        qm.quant_matmul4(x, w_q4.to(torch.int8), scale4, 64)
+    with pytest.raises(ValueError, match="group"):
+        qm.quant_matmul4(x, w_q4, scale4, 32)
+    with pytest.raises(ValueError, match="devices"):
+        qm.quant_matmul4(x, w_q4.cpu(), scale4, 64)
+
+
 def _pq_inputs(B, T, H, Hkv, dk, S, dtype, device, seed=0):
     rng = np.random.RandomState(seed)
     q = torch.from_numpy(rng.randn(B, T, H, dk).astype(np.float32)).to(dtype)

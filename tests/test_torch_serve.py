@@ -1,0 +1,154 @@
+"""The port's `bin/serve`: the engine-mode server over a real websocket on the
+CPU, the flagship preset's int4 branch at tiny widths, and the flags that
+wait for later work."""
+
+import asyncio
+import base64
+import json
+import socket
+import time
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from freeze_omni_tpu.training.vad import synth_speech
+from freeze_omni_tpu_torch import weights
+from freeze_omni_tpu_torch.bin import serve
+from freeze_omni_tpu_torch.config import tiny_system
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _b64(x):
+    return base64.b64encode(
+        (np.clip(x, -1, 1) * 32767).astype("<i2").tobytes()).decode()
+
+
+def test_server_session_over_websocket():
+    websockets = pytest.importorskip("websockets")
+    port = _free_port()
+    server = serve.Server(serve.get_args(
+        ["--preset", "tiny", "--engine", "--device", "cpu", "--port", str(port)]))
+    n = server.cfg.duplex.gating.samples_per_chunk
+
+    async def client():
+        deadline = time.time() + 30
+        while True:
+            try:
+                ws = await websockets.connect(f"ws://127.0.0.1:{port}",
+                                              open_timeout=10)
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                await asyncio.sleep(0.1)
+        events = []
+        async with ws:
+            await ws.send(json.dumps({"type": "start_session", "sid": "t1"}))
+            while json.loads(await asyncio.wait_for(ws.recv(), 30))["event"] \
+                    != "session_ready":
+                pass
+            speech = 0.5 * synth_speech(np.random.RandomState(7), 3 * n)
+            for chunk in (np.zeros(2 * n), speech, np.zeros(6 * n)):
+                # 48 kHz client: the service resamples at ingest
+                await ws.send(json.dumps({"type": "audio", "identity": "user",
+                                          "pcm_b64": _b64(np.repeat(chunk, 3)),
+                                          "sr": 48000}))
+            await ws.send(json.dumps({"type": "bogus"}))
+            deadline = time.time() + 60
+            while time.time() < deadline:
+                try:
+                    msg = json.loads(await asyncio.wait_for(ws.recv(), 5))
+                except asyncio.TimeoutError:
+                    continue
+                events.append(msg)
+                if any(e.get("status") == "ipu_el" for e in events) and \
+                        any(e["event"] == "dialog_state_update" for e in events) \
+                        and any(e["event"] == "error" for e in events):
+                    break
+            await ws.send(json.dumps({"type": "stop"}))
+        return events
+
+    async def main():
+        task = asyncio.create_task(server.run())
+        try:
+            return await client()
+        finally:
+            task.cancel()
+            with pytest.raises(asyncio.CancelledError):
+                await task
+
+    events = asyncio.run(main())
+    assert not server._ticker_thread.is_alive()
+    names = [e["event"] for e in events]
+    statuses = [e.get("status") for e in events if e["event"] == "vad_event"]
+    assert "ipu_sl" in statuses and "ipu_el" in statuses, statuses
+    upd = [e for e in events if e["event"] == "dialog_state_update"]
+    assert upd and all(0.0 <= u["probs"]["state_1"] <= 1.0 for u in upd)
+    err = [e for e in events if e["event"] == "error"]
+    assert err and "bogus" in err[0]["message"]
+    assert "vad_state_update" in names
+    assert server.service.engine.num_active == 0   # the handler closed it
+
+
+def test_flagship_int4_branch(monkeypatch):
+    """`--preset flagship --quant 4` draws the LLM in int4 (every layer
+    projection) with the int8 lm_head and embedding of init_quantized_llm,
+    serves the KV and frontend in bf16, and builds the synthesis pool with
+    --respond. At tiny widths, with the flagship config swapped out."""
+    monkeypatch.setattr(serve, "flagship_system", tiny_system)
+    server = serve.Server(serve.get_args(
+        ["--preset", "flagship", "--engine", "--quant", "4", "--kv_quant", "8",
+         "--max_sessions", "2", "--respond", "--device", "cpu"]))
+    try:
+        engine = server.service.engine
+        llm = engine.core.params["llm"]
+        for name in ("q", "k", "v", "o", "gate", "up", "down"):
+            assert set(llm["layers"][name]) - {"b"} == {"w_q4", "scale4"}, name
+            assert llm["layers"][name]["w_q4"].dtype == torch.uint8
+        assert set(llm["lm_head"]) == {"w_q", "scale"}
+        assert set(llm["embed"]) == {"w_q", "scale"}
+        assert engine.store.kv_quant_bits == 8
+        assert engine.store.max_sessions == 2
+        enc = weights.to_numpy(engine.core.params["encoder_user"])
+        floats = [a.dtype.name for a in jax.tree.leaves(enc) if a.dtype.kind in "fV"]
+        assert floats and set(floats) == {"bfloat16"}
+        assert server.service._tts is not None
+    finally:
+        server.stop_ticker()
+    assert not server._ticker_thread.is_alive()
+
+
+def test_tiny_preset_ignores_quant():
+    server = serve.Server(serve.get_args(
+        ["--preset", "tiny", "--engine", "--quant", "4", "--device", "cpu"]))
+    try:
+        assert "w" in server.service.engine.core.params["llm"]["layers"]["q"]
+    finally:
+        server.stop_ticker()
+
+
+@pytest.mark.parametrize("argv,item", [
+    ([], "D1"),
+    (["--engine", "--config", "x.yaml"], "D3"),
+    (["--engine", "--model_path", "ckpt"], "D2"),
+    (["--engine", "--llm_path", "llm"], "D2"),
+    (["--engine", "--voice_wav", "v.wav"], "D4"),
+    (["--engine", "--lora", "a.npz"], "D4"),
+    (["--engine", "--lora_scale", "0.5"], "D4"),
+    (["--engine", "--state_dir", "s"], "D5"),
+    (["--engine", "--resume_grace", "10"], "D5"),
+    (["--engine", "--tp", "2"], "D9"),
+    (["--engine", "--coordinator", "h:1"], "D9"),
+    (["--engine", "--num_hosts", "2"], "D9"),
+    (["--engine", "--host_id", "1"], "D9"),
+])
+def test_waiting_flags_exit_naming_their_roadmap_item(argv, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
+        serve.Server(serve.get_args(["--preset", "tiny", "--device", "cpu", *argv]))

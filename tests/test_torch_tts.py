@@ -124,7 +124,9 @@ def test_batched_tts_holds_to_streaming_tts_solo_and_batched(tts):
 
 def test_batched_tts_staggered_start_and_cancel(tts):
     _, tcfg, _, tp = tts
-    rng = np.random.RandomState(2)
+    # inputs whose sentences run to the token budget (with seed 2, "a" draws
+    # a special id at its third token and ends in the first step)
+    rng = np.random.RandomState(3)
     h0, h1 = (rng.randn(1, 6, tcfg.decoder.idim).astype(np.float32) for _ in range(2))
     pool = BatchedTTS(tp, tcfg, capacity=2, seed=0, device="cpu")
     assert pool.start([("a", h0, None)]) == 1 and pool.n_free == 1
@@ -143,3 +145,41 @@ def test_batched_tts_staggered_start_and_cancel(tts):
                               h1, None), axis=-1)
     np.testing.assert_allclose(np.concatenate([p for p, _ in got["b"]], axis=-1),
                                ref, rtol=TOL, atol=TOL)
+
+
+def test_batched_tts_ends_a_sentence_when_its_kv_row_is_full(tts):
+    """A pooled sentence stops when its next segment would not fit its
+    decoder KV row (before any write past the row) and ends with one final
+    entry, shorter than the same sentence in a roomy pool; a sentence whose
+    preamble leaves no room for one segment is refused on the host."""
+    _, tcfg, _, tp = tts
+    chunk = tcfg.codec_chunk_size
+    rng = np.random.RandomState(4)
+    h, p = (rng.randn(1, t, tcfg.decoder.idim).astype(np.float32) for t in (6, 2))
+    used = 1 + 6 + 2   # bos + hidden block + prefix
+    tight = BatchedTTS(tp, tcfg, capacity=1, seed=0, device="cpu",
+                       max_kv_len=used + 1 + chunk + chunk // 2)
+    out = _run_pool(tight, [("x", h, p)])
+    ref = _run_pool(BatchedTTS(tp, tcfg, capacity=1, seed=0, device="cpu"),
+                    [("x", h, p)])
+    assert 0 < out["x"].shape[-1] < ref["x"].shape[-1]
+    with pytest.raises(ValueError, match="KV slots"):
+        BatchedTTS(tp, tcfg, capacity=1, seed=0, device="cpu",
+                   max_kv_len=used + chunk).start([("y", h, p)])
+
+
+def test_a_special_codec_id_ends_the_sentence(tts):
+    """The decoder's head covers the four specials; a sampled bos/sos (not
+    only eos/pad) ends the sentence before it reaches the codec, which has
+    no embedding for it (as fastpath.first_response counts valid tokens)."""
+    _, tcfg, _, tp = tts
+    rng = np.random.RandomState(2)   # draws sos (codec_vocab + 1) third
+    h = rng.randn(1, 6, tcfg.decoder.idim).astype(np.float32)
+    out = _run_pool(BatchedTTS(tp, tcfg, capacity=1, seed=0, device="cpu"),
+                    [("a", h, None)])["a"]
+    ref = np.concatenate(_run(StreamingTTS(tp, tcfg, seed=0, device="cpu"),
+                              h, None), axis=-1)
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    up = tcfg.codec.upsample_rate
+    assert 0 < out.shape[-1] <= 3 * up
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
