@@ -17,8 +17,12 @@ raises and the script exits nonzero without printing a result. Phases:
    inputs: K1 (int8 weight-only matmul) at every projection shape for N in
    {1, 89, 232, 1856}, bf16, rtol = atol = 2e-2; K5 (grouped int4 matmul)
    at every projection shape and the int4 lm_head's (3584 x 152064) for N
-   in {1, 8, 89, 232, 1856}, group 64 (and one shape at group 128), bf16 at
-   2e-2 and f32 with TF32 off at 1e-4, with a weight tile of nibble 0; K2 (int8-KV prefill
+   in {1, 2, 3, 5, 8, SMALL_N} (its split-K small-N path) and {89, 232,
+   1856} (its tile path), group 64, and one shape at group 128, a ragged O
+   (520) with 59 groups over the splits, bf16 at 2e-2 and f32 with TF32 off
+   at 1e-4, with a weight tile of nibble 0; the small path must give
+   bit-identical outputs from two calls, and its launch count must rise on
+   exactly the N <= SMALL_N cases; K2 (int8-KV prefill
    attention) at B=8, T=29, H=28, Hkv=4, dk=128, S in {1024, 2048} with
    ragged qend including 0 and a non-finite scale in slot S-1, bf16, 2e-2;
    K3 and K4 (float-cache decode attention) at the LLM shape B=8, H=28,
@@ -73,8 +77,12 @@ raises and the script exits nonzero without printing a result. Phases:
    input byte once and, for K2-K4, only the cache slots this run makes
    visible; beside the plain version's time and, where one PyTorch call
    computes the same function, that call's time; K5 is timed after phase 9
-   on the int4 server's layer-0 projections, at N=232 and N=8, beside
-   torch._weight_int4pack_mm on the same weights;
+   on the int4 server's layer-0 projections, at N=232 and at N in {1, 4, 8,
+   SMALL_N} (text decode), beside torch._weight_int4pack_mm on the same
+   weights (each also as device time: calls captured in a CUDA graph and
+   replayed, which leaves out the host's time per call), and both K5 paths
+   are timed on the q and gate shapes at N in
+   {1, 2, 4, 8, 12, 16, 24, 32}: the crossover that sets SMALL_N;
 9. the int4 serving path at full width and depth (phases 6-8's engine
    freed first): the port's Server from get_args(SERVE_ARGV) (flagship,
    --engine --quant 4 --kv_quant 8, 8 sessions, --respond), its ticker
@@ -86,11 +94,14 @@ raises and the script exits nonzero without printing a result. Phases:
    empty. Launch counts are zeroed just before and read just after, and
    read around every step: K5 and K2 must launch on the tick-only steps
    and K1 must not (every projection is int4; only the int8 lm_head uses
-   K1), K1 and K4 must launch in the response. Every session must get user
+   K1), K1 and K4 must launch in the response, and K5's small-N path in
+   the steps with response work (text decode). Every session must get user
    ipu_sl/ipu_el events and finite dialog_state_update probabilities, the
    response audio must be finite with |pcm| <= 1, and the system VAD must
    hear the fed-back audio. Prints the step p50/p90 against 224 ms (whole
-   step, host frontend, VAD alone, engine.tick), the resident LLM weight
+   step, host frontend, VAD alone, engine.tick), each continuation round's
+   time (resp_segment text-decode steps of the speaking sessions, where
+   K5 runs its small-N path), the resident LLM weight
    bytes int4 beside int8, the peak memory and the launches.
 
 The last lines: the nvidia-smi line, one {"kernels": [...]} JSON line and
@@ -144,6 +155,36 @@ def cuda_time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(fn, calls=20, replays=10):
+    """Device time of one call of fn: `calls` calls captured in one CUDA
+    graph (after warm-up calls on the capture stream) and replayed, timed
+    with CUDA events. Unlike cuda_time_ms this leaves out the host's time
+    per call, which bounds eager back-to-back calls of the narrow shapes."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def bound(nbytes, nops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / BF16_FLOPS_PER_S * 1e3
@@ -174,12 +215,21 @@ def kernel_wrappers():
 
 
 def zero_launches():
+    from freeze_omni_tpu_torch.ops import quant_matmul as qm
+
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    qm.quant_matmul4.launches_small = 0
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Launches of each kernel, and of K5's small-N path alone
+    ("quant_matmul4_small", counted in "quant_matmul4" too)."""
+    from freeze_omni_tpu_torch.ops import quant_matmul as qm
+
+    out = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    out["quant_matmul4_small"] = qm.quant_matmul4.launches_small
+    return out
 
 
 def fixed_sentences():
@@ -475,25 +525,37 @@ def phase_kernel_parity():
             if not ok or not torch.isfinite(y.float()).all():
                 raise AssertionError(f"K1 disagrees with its plain version at "
                                      f"N={N} K={K} O={O}: {err}")
-    k5_err = 0.0
-    cases = [(K, O, N, 64) for (K, O) in K5_SHAPES for N in (1, 8, 89, 232, 1856)]
-    cases.append((3584, 3584, 232, 128))   # the coarser group of test_quant.py
+    k5_err = {"small": 0.0, "tile": 0.0}
+    small_ns = (1, 2, 3, 5, 8, qm.SMALL_N)
+    cases = [(K, O, N, 64) for (K, O) in K5_SHAPES
+             for N in small_ns + (89, 232, 1856)]
+    cases += [(3584, 3584, N, 128) for N in (8, qm.SMALL_N, 232)]  # coarser group
+    cases += [(3776, 520, N, 64) for N in (5, 232)]   # ragged O, 59 groups
     for (K, O, N, group) in cases:
         for dtype, dtol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             x, w_q4, scale4 = k5_inputs(N, K, O, group, dtype, seed=N + K + O)
+            small = qm.quant_matmul4.launches_small
             y = qm.quant_matmul4(x, w_q4, scale4, group)
+            y2 = qm.quant_matmul4(x, w_q4, scale4, group)
             ref = qm.quant_matmul4_reference(x, w_q4, scale4, group)
             torch.cuda.synchronize()
+            path = "small" if N <= qm.SMALL_N else "tile"
+            if qm.quant_matmul4.launches_small - small != 2 * (path == "small"):
+                raise AssertionError(f"K5 at N={N} did not take its {path} path")
+            if not torch.equal(y, y2):
+                raise AssertionError(f"K5 ({path}) gave two results for one "
+                                     f"input at N={N} K={K} O={O}")
             err, ok = max_violation(y, ref, dtol)
             if dtype == torch.bfloat16:
-                k5_err = max(k5_err, err)
-            log(f"[parity] K5 N={N} K={K} O={O} group={group} "
-                f"{str(dtype).split('.')[-1]}: max_abs_err {err:.3e} (tol {dtol})")
+                k5_err[path] = max(k5_err[path], err)
+            log(f"[parity] K5 {path} N={N} K={K} O={O} group={group} "
+                f"{str(dtype).split('.')[-1]}: max_abs_err {err:.3e} (tol {dtol}); "
+                f"two calls bit-identical")
             if not ok or not torch.isfinite(y.float()).all():
                 raise AssertionError(f"K5 disagrees with its plain version at "
                                      f"N={N} K={K} O={O} group={group} {dtype}: "
                                      f"{err}")
-            del x, w_q4, scale4, y, ref
+            del x, w_q4, scale4, y, y2, ref
     k2_err = 0.0
     for S in (1024, 2048):
         q, k_q, k_s, v_q, v_s, qend = k2_inputs(8, 29, 28, 4, 128, S, seed=S)
@@ -532,8 +594,8 @@ def phase_kernel_parity():
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version "
                                      f"at S={S}")
-    return {"quant_matmul": k1_err, "quant_matmul4": k5_err,
-            "prefill_quant": k2_err, **dec_err}
+    return {"quant_matmul": k1_err, "quant_matmul4": max(k5_err.values()),
+            "quant_matmul4_paths": k5_err, "prefill_quant": k2_err, **dec_err}
 
 
 def parity_config():
@@ -982,7 +1044,7 @@ def phase_service(smi, int8_llm_bytes):
     svc._prepare_sentence = lambda text, hids: prepare(
         texts[next(count) % len(texts)], hids)
 
-    clock = {"front": 0.0, "vad": 0.0, "tick": 0.0}
+    clock = {"front": 0.0, "vad": 0.0, "tick": 0.0, "cont": 0.0}
     activity = {"respond": 0, "continue": 0, "pool": 0}
 
     def timed(fn, key, sync=False):
@@ -1004,6 +1066,9 @@ def phase_service(smi, int8_llm_bytes):
 
     svc._vad_stage = timed(svc._vad_stage, "front")
     engine.tick = timed(engine.tick, "tick", sync=True)
+    # a continuation round: resp_segment text-decode steps of every
+    # speaking session, with the sentence routing after them
+    svc._continue_responses = timed(svc._continue_responses, "cont", sync=True)
     engine.respond_fast_many = counted(engine.respond_fast_many, "respond")
     engine.continue_segments_submit = counted(engine.continue_segments_submit,
                                               "continue")
@@ -1063,6 +1128,7 @@ def phase_service(smi, int8_llm_bytes):
         kind = "tick" if not any(activity.values()) else "response"
         steps.append({"kind": kind, "ms": ms, "front": clock["front"] * 1e3,
                       "vad": clock["vad"] * 1e3, "tick": clock["tick"] * 1e3,
+                      "cont": clock["cont"] * 1e3,
                       "launches": {key: after[key] - before[key] for key in after},
                       **dict(activity)})
         if trigger is not None and k > trigger:
@@ -1111,7 +1177,7 @@ def phase_service(smi, int8_llm_bytes):
     for key in ("quant_matmul4", "prefill_quant"):
         if not sum(st["launches"][key] for st in ticks):
             raise AssertionError(f"{key} was not launched on the tick steps")
-    for key in ("quant_matmul", "decode_attention_blocked"):
+    for key in ("quant_matmul", "decode_attention_blocked", "quant_matmul4_small"):
         if not sum(st["launches"][key] for st in resp):
             raise AssertionError(f"{key} was not launched in the response")
 
@@ -1137,6 +1203,14 @@ def phase_service(smi, int8_llm_bytes):
         f"steps {sum(st['respond'] for st in resp)}, continuation rounds "
         f"{sum(st['continue'] for st in resp)}, pool steps "
         f"{sum(st['pool'] for st in resp)}; audio per speaking session (s) {seconds}")
+    rounds = [st for st in resp if st["continue"]]
+    if rounds:
+        seg = cfg.duplex.resp_segment
+        log(f"[serve] ({smi}) continuation rounds ({len(rounds)}, "
+            f"{seg} text steps each): ms per round "
+            f"{[round(st['cont'], 2) for st in rounds]}; per text step "
+            f"{[round(st['cont'] / seg, 2) for st in rounds]}; K5 small-N "
+            f"launches per round {[st['launches']['quant_matmul4_small'] for st in rounds]}")
     log(f"[serve] resident LLM weights: int4 {int4_llm_bytes / 2**30:.3f} GiB "
         f"({int4_llm_bytes} B) vs int8 {int8_llm_bytes / 2**30:.3f} GiB "
         f"({int8_llm_bytes} B); peak device memory {peak / 2**30:.2f} GiB")
@@ -1201,9 +1275,10 @@ def k5_time(x, w_q4, scale4, group):
     N, K = x.shape
     O = w_q4.shape[1]
     r = {"ms": cuda_time_ms(lambda: qm.quant_matmul4(x, w_q4, scale4, group)),
+         "device_ms": graph_time_ms(lambda: qm.quant_matmul4(x, w_q4, scale4, group)),
          "plain_ms": cuda_time_ms(
              lambda: qm.quant_matmul4_reference(x, w_q4, scale4, group), iters=10),
-         "library_ms": None, "library_error": None,
+         "library_ms": None, "library_device_ms": None, "library_error": None,
          "bytes": K * O // 2 + 4 * scale4.numel() + 2 * N * K + 2 * N * O,
          "ops": 2 * N * K * O}
     try:
@@ -1214,6 +1289,8 @@ def k5_time(x, w_q4, scale4, group):
         err = float((lib.float() - qm.quant_matmul4_reference(
             x, w_q4, scale4, group).float()).abs().max())
         r["library_ms"] = cuda_time_ms(
+            lambda: torch._weight_int4pack_mm(x, packed, group, sz))
+        r["library_device_ms"] = graph_time_ms(
             lambda: torch._weight_int4pack_mm(x, packed, group, sz))
         r["library_max_abs_err"] = err
         del w_t, packed, sz, lib
@@ -1226,7 +1303,8 @@ def k5_layer(layers, N, g):
     """One layer's seven int4 projections at N rows."""
     import torch
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+    total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "library_device_ms": 0.0, "bytes": 0, "ops": 0}
     errors = []
     for name in ("q", "k", "v", "o", "gate", "up", "down"):
         w_q4, scale4 = layers[name]["w_q4"][0], layers[name]["scale4"][0]
@@ -1235,21 +1313,24 @@ def k5_layer(layers, N, g):
         x = torch.randn((N, 2 * Kp), generator=g, device="cuda").to(torch.bfloat16)
         r = k5_time(x, w_q4, scale4, group)
         b_ms, b_by = bound(r["bytes"], r["ops"])
-        lib = (f"{r['library_ms']:.4f} ms (max |d| vs plain "
-               f"{r['library_max_abs_err']:.3e})" if r["library_error"] is None
+        lib = (f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f}; "
+               f"max |d| vs plain {r['library_max_abs_err']:.3e})"
+               if r["library_error"] is None
                else f"refused: {r['library_error']}")
         log(f"[time] K5 {name} N={N} K={2 * Kp} O={O} group={group}: kernel "
-            f"{r['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain "
-            f"{r['plain_ms']:.4f} ms, torch._weight_int4pack_mm {lib}")
-        for key in ("ms", "plain_ms", "bytes", "ops"):
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), bound {b_ms:.4f} ms "
+            f"({b_by}), plain {r['plain_ms']:.4f} ms, torch._weight_int4pack_mm {lib}")
+        for key in ("ms", "device_ms", "plain_ms", "bytes", "ops"):
             total[key] += r[key]
         if r["library_error"] is None:
             total["library_ms"] += r["library_ms"]
+            total["library_device_ms"] += r["library_device_ms"]
         else:
             errors.append(r["library_error"])
     total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["ops"])
     if errors:
         total["library_ms"], total["library_error"] = None, errors[0]
+        total["library_device_ms"] = None
     return total
 
 
@@ -1409,31 +1490,94 @@ def phase_kernel_times(engine, tick, resp, errs, smi):
     ]
 
 
+def k5_crossover(layers, g):
+    """Both K5 paths forced on the server's layer-0 q and gate weights at
+    N in CROSSOVER_NS: per N, each path's time (ms) on each shape and the
+    sum. The largest N in 8..16 at which the small path still wins on the
+    sum is the SMALL_N this table supports."""
+    import torch
+
+    from freeze_omni_tpu_torch.ops import quant_matmul as qm
+
+    rows = []
+    for N in CROSSOVER_NS:
+        row = {"N": N, "small": {}, "tile": {}}
+        for name in ("q", "gate"):
+            w_q4, scale4 = layers[name]["w_q4"][0], layers[name]["scale4"][0]
+            group = 2 * w_q4.shape[0] // scale4.shape[0]
+            x = torch.randn((N, 2 * w_q4.shape[0]), generator=g,
+                            device="cuda").to(torch.bfloat16)
+            for path in ("small", "tile"):
+                row[path][name] = cuda_time_ms(
+                    lambda: qm.quant_matmul4(x, w_q4, scale4, group, path=path))
+        for path in ("small", "tile"):
+            row[path]["sum"] = sum(row[path].values())
+        rows.append(row)
+        log(f"[time] K5 crossover N={N}: small q {row['small']['q']:.4f} gate "
+            f"{row['small']['gate']:.4f} (sum {row['small']['sum']:.4f}) ms; tile "
+            f"q {row['tile']['q']:.4f} gate {row['tile']['gate']:.4f} (sum "
+            f"{row['tile']['sum']:.4f}) ms; {'small' if row['small']['sum'] < row['tile']['sum'] else 'tile'} wins")
+    wins = [r["N"] for r in rows if r["small"]["sum"] < r["tile"]["sum"]]
+    pick = max([n for n in wins if 8 <= n <= 16], default=None)
+    log(f"[time] K5 crossover: the small path wins at N in {wins}; the largest "
+        f"N in 8..16 where it wins: {pick}; SMALL_N = {qm.SMALL_N}")
+    return {"rows": rows, "small_wins_at": wins, "largest_win_8_16": pick}
+
+
+CROSSOVER_NS = (1, 2, 4, 8, 12, 16, 24, 32)
+
+
 def phase_k5_times(serve, errs, smi):
     """K5 on the int4 server's layer-0 projections: a tick (N = 8 sessions
-    x 29 tokens) and a text-decode step (N = 8)."""
+    x 29 tokens, the tile path) and text-decode steps (N = 1, 4, 8 and
+    SMALL_N, the small-N path), then the crossover of the two paths."""
     import torch
+
+    from freeze_omni_tpu_torch.ops import quant_matmul as qm
 
     engine = serve["server"].service.engine
     layers = engine.core.params["llm"]["layers"]
     B = engine.store.max_sessions
     g = torch.Generator(device="cuda").manual_seed(11)
     k5 = k5_layer(layers, B * 29, g)
-    k5_dec = k5_layer(layers, B, g)
-    short = {k: k5_dec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")}
+    decode = {}
+    for N in sorted({1, 4, 8, qm.SMALL_N}):
+        t = k5_layer(layers, N, g)
+        decode[f"decode_step_N{N}"] = {
+            k: t.get(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms", "library_device_ms",
+                                  "library_error")}
+        log(f"[time] K5 one layer's 7 projections at N={N} ({smi}): kernel "
+            f"{t['ms']:.4f} ms eager, {t['device_ms']:.4f} ms device, bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {t['bound_ms'] / t['ms']:.3f} "
+            f"of eager, {t['bound_ms'] / t['device_ms']:.3f} of device), plain "
+            f"{t['plain_ms']:.4f} ms, torch._weight_int4pack_mm {t['library_ms']} "
+            f"ms eager, {t['library_device_ms']} ms device")
+    log(f"[time] K5 one layer's 7 projections at N={B * 29} ({smi}): kernel "
+        f"{k5['ms']:.4f} ms ({k5['device_ms']:.4f} device), bound "
+        f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}), plain {k5['plain_ms']:.4f} "
+        f"ms, torch._weight_int4pack_mm {k5['library_ms']} ms "
+        f"({k5['library_device_ms']} device)")
+    crossover = k5_crossover(layers, g)
+    launches = serve["launches"]
     return {"name": "quant_matmul4 (K5, one layer's 7 int4 projections at N=232)",
             "route": "cuda", "source": "freeze_omni_tpu_torch/csrc/quant_matmul4.cu",
             "replaces": "freeze_omni_tpu/ops/quant_matmul.py:162",
-            "launches": serve["launches"]["quant_matmul4"],
+            "launches": launches["quant_matmul4"],
             "max_abs_err": errs["quant_matmul4"], "ms": k5["ms"],
             "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
             "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
             "library_error": k5.get("library_error"),
-            "launches_int4_service": serve["launches"]["quant_matmul4"],
+            "device_ms": k5["device_ms"], "library_device_ms": k5["library_device_ms"],
+            "launches_small": launches["quant_matmul4_small"],
+            "launches_tile": launches["quant_matmul4"] - launches["quant_matmul4_small"],
+            "max_abs_err_paths": errs["quant_matmul4_paths"],
+            "small_n": qm.SMALL_N,
+            "launches_int4_service": launches["quant_matmul4"],
             "launches_per_tick": serve["per_tick"]["quant_matmul4"],
             "launches_per_response": serve["per_response"]["quant_matmul4"],
-            "card": smi, "decode_step_N8": short}
+            "launches_small_per_response": serve["per_response"]["quant_matmul4_small"],
+            "card": smi, **decode, "crossover": crossover}
 
 
 def main() -> int:

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.PyDLL] = {}
 
 
 class KernelBuildFailure(RuntimeError):
@@ -91,13 +91,17 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     return info
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
+def load(name: str) -> ctypes.PyDLL:
+    """The loaded library of kernel `name`, built first if needed. Loaded
+    as a PyDLL: a launch function returns in microseconds without touching
+    Python, so it keeps the GIL instead of releasing and retaking it on
+    every launch, which costs time when other threads (a server's) are
+    waiting for the GIL."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             path = build([name])[name]["path"]
-            lib = ctypes.CDLL(path)
+            lib = ctypes.PyDLL(path)
             _loaded[name] = lib
         return lib
 

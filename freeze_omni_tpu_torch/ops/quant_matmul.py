@@ -14,11 +14,21 @@ tensors only. A CUDA tensor the kernel does not take raises; it never falls
 back to the plain version. N and O may be ragged (any N >= 1): the kernels
 mask the edges instead of padding. `quant_matmul.launches` and
 `quant_matmul4.launches` count kernel launches.
+
+K5 has two paths. N <= SMALL_N (a text-decode step) is bound by the weight
+bytes and takes the split-K path: `small_plan` picks its grid, and a float32
+workspace of [splits, N, O], kept per card and stream, holds the partials
+that a second, small kernel sums in a fixed order. Larger N (the tick) is
+bound by operations and takes the WMMA tile path.
+`quant_matmul4.launches_small` counts the small path's launches, and
+`quant_matmul4.launches` both paths'.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -107,10 +117,10 @@ quant_matmul.launches = 0
 
 
 def _check_cuda_args4(x, w_q4, scale4, group) -> None:
-    dev = x.device
-    if w_q4.device != dev or scale4.device != dev:
+    dev = x.get_device()
+    if w_q4.get_device() != dev or scale4.get_device() != dev:
         raise ValueError(f"quant_matmul4: tensors on different devices "
-                         f"({dev}, {w_q4.device}, {scale4.device})")
+                         f"({x.device}, {w_q4.device}, {scale4.device})")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"quant_matmul4: x dtype {x.dtype} not in "
                         f"{list(_DTYPE_CODE)}")
@@ -133,28 +143,122 @@ def _check_cuda_args4(x, w_q4, scale4, group) -> None:
         raise ValueError("quant_matmul4: x, w_q4 and scale4 must be contiguous")
 
 
+# K5's small-N path: the largest N it takes (the kernel keeps up to 32 rows
+# of accumulators in registers), and the largest N the dispatch sends it,
+# set from the crossover measured on the card (PERF.md)
+SMALL_N_MAX = 32
+SMALL_N = 16
+_WARP_COLS = 128              # output columns a warp of the split kernel
+_X_SLICE_BYTES = 32 * 1024    # a block's x slice in shared memory, at most
+_TARGET_WARPS = 132 * 8       # ~8 warps on each of the H100's 132 SMs
+_MIN_BLOCKS = 2 * 132
+
+
+def _rows_padded(N: int) -> int:
+    """The kernel's row count for N rows: 4, 8, 16 or 32."""
+    return 4 if N <= 4 else 8 if N <= 8 else 16 if N <= 16 else 32
+
+
+@functools.lru_cache(maxsize=None)
+def small_plan(N: int, K: int, O: int, group: int) -> Tuple[int, int]:
+    """(warps a block, K splits) of K5's small-N launch. Each warp takes a
+    128-column slab and each split a run of whole groups (split s covers
+    groups [s * gps, (s + 1) * gps), gps = ceil(G / splits)). Splits are
+    chosen so that slabs x splits is ~8 warps on each SM: many for the
+    narrow (k, v) and the deep (down) shapes, few for gate/up and the
+    lm_head, whose slabs already fill the card; a split's x slice must fit
+    its shared memory. Warps a block drop from 4 to 2 or 1 while the grid
+    would have fewer than 2 x 132 blocks."""
+    G = K // group
+    slabs = -(-O // _WARP_COLS)
+    gps_max = max(1, _X_SLICE_BYTES // (group * _rows_padded(N) * 4))
+    gps = min(gps_max, max(1, -(-G // -(-_TARGET_WARPS // slabs))))
+    splits = -(-G // gps)
+    warps = 4
+    while warps > 1 and -(-slabs // warps) * splits < _MIN_BLOCKS:
+        warps //= 2
+    return warps, splits
+
+
+def takes_small_path(N: int, group: int) -> bool:
+    """Whether quant_matmul4 sends N rows to the small-N path: N <= SMALL_N
+    and one group's x slice fits a block's shared memory."""
+    return 1 <= N <= SMALL_N and group * _rows_padded(N) * 4 <= _X_SLICE_BYTES
+
+
 def quant_matmul4(x: torch.Tensor, w_q4: torch.Tensor, scale4: torch.Tensor,
-                  group: int) -> torch.Tensor:
+                  group: int, path: Optional[str] = None) -> torch.Tensor:
     """x: [N, K] bf16/f32; w_q4: [K/2, O] uint8; scale4: [K/group, O] f32
-    -> [N, O] x.dtype."""
-    if x.device.type == "cpu":
-        return quant_matmul4_reference(x, w_q4, scale4, group)
-    if x.device.type != "cuda":
+    -> [N, O] x.dtype. path: None picks by N (takes_small_path); "small" or
+    "tile" forces one on a CUDA tensor (to time both at one N)."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return quant_matmul4_reference(x, w_q4, scale4, group)
         raise ValueError(f"quant_matmul4: unsupported device {x.device}")
+    dev = x.get_device()
+    if dev != torch.cuda.current_device():   # launch on x's card
+        with torch.cuda.device(dev):
+            return quant_matmul4(x, w_q4, scale4, group, path)
     _check_cuda_args4(x, w_q4, scale4, group)
     N, K = x.shape
     O = w_q4.shape[1]
-    y = torch.empty((N, O), dtype=x.dtype, device=x.device)
+    if path is None:
+        small = takes_small_path(N, group)
+    elif path in ("small", "tile"):
+        small = path == "small"
+    else:
+        raise ValueError(f"quant_matmul4: path {path!r} not in small, tile")
+    if small and not 1 <= N <= SMALL_N_MAX:
+        raise ValueError(f"quant_matmul4: the small-N path takes 1 to "
+                         f"{SMALL_N_MAX} rows, got {N}")
+    y = x.new_empty((N, O))
     if N == 0 or O == 0:
         return y
-    fn = _lib("quant_matmul4", 4)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w_q4.data_ptr(),
-                 scale4.data_ptr(), y.data_ptr(), N, K, O, group, stream)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if small:
+        warps, splits = small_plan(N, K, O, group)
+        err = _small_lib()(_DTYPE_CODE[x.dtype], x.data_ptr(), w_q4.data_ptr(),
+                           scale4.data_ptr(), y.data_ptr(),
+                           _workspace(dev, stream, splits * N * O), N, K, O,
+                           group, warps, splits, stream)
+    else:
+        err = _lib("quant_matmul4", 4)(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), w_q4.data_ptr(),
+            scale4.data_ptr(), y.data_ptr(), N, K, O, group, stream)
     _build.check(err, "quant_matmul4")
     quant_matmul4.launches += 1
+    quant_matmul4.launches_small += small
     return y
 
 
+_small_fn = None
+_workspaces: dict = {}
+
+
+def _small_lib():
+    global _small_fn
+    if _small_fn is None:
+        fn = _build.load("quant_matmul4").quant_matmul4_small_launch
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + \
+            [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _small_fn = fn
+    return _small_fn
+
+
+def _workspace(dev: int, stream: int, n: int) -> int:
+    """Device pointer of the small path's float32 split partials (n floats):
+    one buffer per (card, stream), grown on demand and reused, since
+    launches on one stream run in order. A replaced buffer was allocated on
+    this stream, so the caching allocator hands it out again only in this
+    stream's order."""
+    buf = _workspaces.get((dev, stream))
+    if buf is None or buf[0].numel() < n:
+        t = torch.empty(max(n, 1 << 20), dtype=torch.float32,
+                        device=torch.device("cuda", dev))
+        buf = _workspaces[(dev, stream)] = (t, t.data_ptr())
+    return buf[1]
+
+
 quant_matmul4.launches = 0
+quant_matmul4.launches_small = 0

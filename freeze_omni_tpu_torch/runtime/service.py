@@ -95,11 +95,17 @@ class DuplexService:
             # pooled decode state, advanced by one batched step per service
             # tick (runtime/tts_batch.BatchedTTS). Sentence order per session
             # is kept by the per-session FIFO (one job in flight).
-            from .tts_batch import BatchedTTS
+            from .tts_batch import BatchedTTS, row_slots
 
             pool = cfg.serving.tts_pool or max(4, cfg.serving.max_sessions // 4)
+            # rows sized for the longest sentence a response can hand the
+            # pool: resp_max_tokens LLM tokens, each hidden / idim decoder
+            # frames, as prefix and again as re-embedded text
+            frames = cfg.duplex.resp_max_tokens * (
+                cfg.audio_llm.llm.hidden // cfg.tts.decoder.idim)
             self._tts = BatchedTTS(tts_params, cfg.tts, capacity=pool,
-                                   seed=seed, device=self.engine.device)
+                                   seed=seed, max_kv_len=row_slots(cfg.tts, frames),
+                                   device=self.engine.device)
 
     # ------------------------------------------------------------------
 
@@ -507,6 +513,15 @@ class DuplexService:
                 jobs.append(((sid, gen), hidden, prefix))
             if jobs:
                 n = self._tts.start(jobs)
+                # a sentence the pool refuses (too long for its rows) is
+                # dropped from its session's queue with an error event; the
+                # others started (there were rows for all of them)
+                refused = dict(self._tts.take_refused())
+                started = [key for key, _h, _p in jobs if key not in refused][:n]
+                for key, reason in refused.items():
+                    fe = sessions[key[0]]
+                    fe.tts_queue.pop(0)
+                    fe.sink.emit("error", {"where": "synthesis", "message": reason})
                 # assign tts_key under the lock and re-check membership:
                 # close_session (websocket thread) pops the session and
                 # cancels fe.tts_key — if it ran between start() and the
@@ -514,7 +529,7 @@ class DuplexService:
                 # for the sentence's full duration. A session that closed
                 # mid-start gets its fresh job cancelled here instead.
                 with self._lock:
-                    for (key, _h, _p), j in zip(jobs, range(n)):
+                    for key in started:
                         sid = key[0]
                         fe = sessions[sid]
                         if self.sessions.get(sid) is not fe:

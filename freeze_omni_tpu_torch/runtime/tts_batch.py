@@ -15,7 +15,9 @@ Every in-flight sentence is a row of ONE pooled `DecodeState`:
   windows, left/right trimming, quiet-point splicing (llm2tts.py:114-160).
 
 The pool has a fixed capacity: when it is full, `start` starts fewer and the
-caller queues the rest. The JAX pool pads its batches to powers of two and
+caller queues the rest. Each row holds `max_kv_len` decoder KV slots
+(`row_slots`); a sentence whose preamble leaves its row less than one codec
+chunk is refused on its own (`take_refused`), and the others start. The JAX pool pads its batches to powers of two and
 pre-compiles every shape in `warmup`; PyTorch runs eagerly, so here batches
 keep their size and there is nothing to warm.
 """
@@ -35,6 +37,17 @@ from ..tts import bucket_pad, find_min_seam, preamble, vocode
 from ..utils.device import resolve_device
 
 BUCKET = 32
+
+
+def row_slots(cfg: TTSConfig, max_frames: int) -> int:
+    """Decoder KV slots of a pool row that holds a sentence of up to
+    `max_frames` prefix frames and `max_frames` text frames: bos, both
+    blocks, the token budget rounded up to whole codec chunks and a margin
+    of 8 (the scratch slot among them), capped at the decoder's
+    max_kv_len."""
+    chunk = cfg.codec_chunk_size
+    budget = -(-cfg.max_tokens // chunk) * chunk
+    return min(cfg.decoder.max_kv_len, 1 + 2 * max_frames + budget + 8)
 
 
 class _Job:
@@ -80,17 +93,17 @@ class BatchedTTS:
                  seed: int = 0, max_kv_len: Optional[int] = None, device=None):
         """params: {'decoder', 'codec'} on `device` (None: the card).
         capacity: pool rows (concurrent sentences). max_kv_len: decoder KV
-        slots per row; by default a bound from the synthesis arithmetic
-        (4 x BUCKET prefix + 4 x BUCKET text + bos + max_tokens + margin)
-        instead of the decoder's full context, since `capacity` rows stay
-        resident."""
+        slots per row; by default `row_slots` for a 4 x BUCKET prefix and
+        text instead of the decoder's full context, since `capacity` rows
+        stay resident. The duplex service passes the bound of its longest
+        response (DuplexService)."""
         self.cfg = cfg
         self.params = params
         self.capacity = capacity
         self.device = resolve_device(device)
         dcfg = cfg.decoder
         if max_kv_len is None:
-            max_kv_len = min(dcfg.max_kv_len, 8 * BUCKET + 1 + cfg.max_tokens + 8)
+            max_kv_len = row_slots(cfg, 4 * BUCKET)
         self.max_kv_len = max_kv_len
         self._dcfg = dataclasses.replace(dcfg, max_kv_len=max_kv_len)
         cache = sd.init_cache(self._dcfg, capacity, device=self.device)
@@ -98,6 +111,7 @@ class BatchedTTS:
                                           max(cfg.penalty_window_size, 1))
         self.active = np.zeros((capacity,), bool)
         self.jobs: Dict[int, _Job] = {}   # row -> job
+        self._refused: List[Tuple[object, str]] = []
         self._free: List[int] = list(range(capacity))
         # start/step run on the service tick thread, while a session close
         # may cancel() from another thread mid-step
@@ -122,26 +136,33 @@ class BatchedTTS:
     def start(self, sentences: List[Tuple[object, np.ndarray,
                                           Optional[np.ndarray]]]) -> int:
         """sentences: [(key, hidden [1,T,idim], prefix [1,P,idim]|None)].
-        Starts as many as fit, in order; returns how many started. One
-        preamble batch covers them all."""
+        Starts as many as there are free rows, in order; returns how many
+        started. One preamble batch covers them all. A sentence whose
+        preamble leaves its row less than one codec chunk is refused: it
+        takes no row, and `take_refused` lists it with the reason."""
         with self._lock:
-            todo = sentences[: len(self._free)]
-        if not todo:
-            return 0
-        n = len(todo)
+            n_free = len(self._free)
         # the preamble writes bos + the hidden block + the prefix (when the
         # decoder keeps prefix KV) into the row; codec tokens follow, one
         # segment per step, and slot max_kv_len - 1 is the scratch slot
-        rooms = []
-        for key, h, p in todo:
+        todo, rooms = [], []
+        for key, h, p in sentences:
+            if len(todo) == n_free:
+                break
             used = 1 + h.shape[1] + (p.shape[1] if p is not None
                                      and self._dcfg.use_prefix_kv else 0)
-            rooms.append(self.max_kv_len - 1 - used)
-            if rooms[-1] < self.cfg.codec_chunk_size:
-                raise ValueError(
-                    f"sentence {key!r} needs {used} decoder KV slots before its "
-                    f"first {self.cfg.codec_chunk_size} codec tokens; the pool's "
-                    f"rows hold {self.max_kv_len}")
+            room = self.max_kv_len - 1 - used
+            if room < self.cfg.codec_chunk_size:
+                self._refused.append((key, (
+                    f"sentence needs {used} decoder KV slots before its first "
+                    f"{self.cfg.codec_chunk_size} codec tokens; the pool's rows "
+                    f"hold {self.max_kv_len}")))
+                continue
+            todo.append((key, h, p))
+            rooms.append(room)
+        if not todo:
+            return 0
+        n = len(todo)
         idim = todo[0][1].shape[2]
         dparams = self.params["decoder"]
         with torch.no_grad():
@@ -164,6 +185,12 @@ class BatchedTTS:
                                          rooms[i])
                 self.active[idx[i]] = True
         return n
+
+    def take_refused(self) -> List[Tuple[object, str]]:
+        """The (key, reason) of every sentence `start` refused since the
+        last call, oldest first; clears the list."""
+        refused, self._refused = self._refused, []
+        return refused
 
     def _scatter(self, rows: sd.DecodeState, idx: List[int]) -> None:
         """Copy rows 0..len(idx)-1 of a fresh batch into pool rows `idx`, in

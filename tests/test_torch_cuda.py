@@ -109,6 +109,73 @@ def test_quant_matmul4_matches_plain(cuda, dtype, N, K, O, group):
     torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
 
 
+def _q4_inputs_nib0(N, K, O, group, dtype, device, seed=0):
+    """_q4_inputs with a first tile of nibble-0 bytes (weight -8, which the
+    quantizer never writes but the kernel must compute)."""
+    x, w_q4, scale4 = _q4_inputs(N, K, O, group, dtype, device, seed)
+    w_q4[:32, :128] = 0
+    return x, w_q4, scale4
+
+
+SMALL_CASES = [(K, O, N, 64) for (K, O) in (
+    (3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (3584, 152064))
+    for N in (1, 2, 3, 5, 8, qm.SMALL_N)] + [
+    (3584, 3584, 8, 128),      # the coarser group
+    (3776, 520, 5, 64),        # 59 groups over the splits; O % 16 != 0
+    (200, 131, 3, 10),         # a group of 5 packed rows; bytewise loads
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,O,N,group", SMALL_CASES)
+def test_quant_matmul4_small_path_matches_plain(cuda, dtype, K, O, N, group):
+    """N <= SMALL_N takes the split-K path, agrees with the plain version
+    and gives bit-identical outputs from call to call."""
+    assert qm.takes_small_path(N, group)
+    x, w_q4, scale4 = _q4_inputs_nib0(N, K, O, group, dtype, cuda, seed=N + O)
+    total, small = qm.quant_matmul4.launches, qm.quant_matmul4.launches_small
+    y = qm.quant_matmul4(x, w_q4, scale4, group)
+    y2 = qm.quant_matmul4(x, w_q4, scale4, group)
+    torch.cuda.synchronize()
+    assert qm.quant_matmul4.launches == total + 2
+    assert qm.quant_matmul4.launches_small == small + 2
+    assert torch.equal(y, y2)
+    ref = qm.quant_matmul4_reference(x, w_q4, scale4, group)
+    assert y.dtype == dtype and y.shape == (N, O)
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("N", [12, 24, 32])
+def test_quant_matmul4_paths_agree_when_forced(cuda, N):
+    """Both paths forced at one N (as the crossover timing runs them) give
+    the plain version's result; the tick sizes take the tile path."""
+    x, w_q4, scale4 = _q4_inputs_nib0(N, 3584, 3584, 64, torch.bfloat16, cuda)
+    ref = qm.quant_matmul4_reference(x, w_q4, scale4, 64).float()
+    for path in ("small", "tile"):
+        small = qm.quant_matmul4.launches_small
+        y = qm.quant_matmul4(x, w_q4, scale4, 64, path=path)
+        torch.cuda.synchronize()
+        assert qm.quant_matmul4.launches_small == small + (path == "small")
+        torch.testing.assert_close(y.float(), ref, rtol=2e-2, atol=2e-2)
+    for n in (89, 232):
+        assert not qm.takes_small_path(n, 64)
+
+
+def test_quant_matmul4_small_path_rejects_malformed_input(cuda):
+    x, w_q4, scale4 = _q4_inputs(4, 128, 64, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="group"):
+        qm.quant_matmul4(x, w_q4, scale4, 32)
+    with pytest.raises(ValueError, match="path"):
+        qm.quant_matmul4(x, w_q4, scale4, 64, path="fast")
+    big = torch.zeros((qm.SMALL_N_MAX + 1, 128), dtype=torch.bfloat16,
+                      device=cuda)
+    with pytest.raises(ValueError, match="small-N"):
+        qm.quant_matmul4(big, w_q4, scale4, 64, path="small")
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.quant_matmul4(x.t().contiguous().t(), w_q4, scale4, 64)
+
+
 def test_linear_takes_a_strided_activation_int4(cuda):
     """A w_q4 leaf goes through K5 for a strided view like a dense one."""
     from freeze_omni_tpu_torch.models.layers import linear

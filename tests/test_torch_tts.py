@@ -151,7 +151,8 @@ def test_batched_tts_ends_a_sentence_when_its_kv_row_is_full(tts):
     """A pooled sentence stops when its next segment would not fit its
     decoder KV row (before any write past the row) and ends with one final
     entry, shorter than the same sentence in a roomy pool; a sentence whose
-    preamble leaves no room for one segment is refused on the host."""
+    preamble leaves no room for one segment is refused on the host: it takes
+    no row, and take_refused names it."""
     _, tcfg, _, tp = tts
     chunk = tcfg.codec_chunk_size
     rng = np.random.RandomState(4)
@@ -163,9 +164,11 @@ def test_batched_tts_ends_a_sentence_when_its_kv_row_is_full(tts):
     ref = _run_pool(BatchedTTS(tp, tcfg, capacity=1, seed=0, device="cpu"),
                     [("x", h, p)])
     assert 0 < out["x"].shape[-1] < ref["x"].shape[-1]
-    with pytest.raises(ValueError, match="KV slots"):
-        BatchedTTS(tp, tcfg, capacity=1, seed=0, device="cpu",
-                   max_kv_len=used + chunk).start([("y", h, p)])
+    short = BatchedTTS(tp, tcfg, capacity=1, seed=0, device="cpu",
+                       max_kv_len=used + chunk)
+    assert short.start([("y", h, p)]) == 0 and short.n_free == 1
+    (refused,) = short.take_refused()
+    assert refused[0] == "y" and "KV slots" in refused[1]
 
 
 def test_a_special_codec_id_ends_the_sentence(tts):
