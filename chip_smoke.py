@@ -12,19 +12,22 @@ raises and the script exits nonzero without printing a result. Phases:
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: every kernel of both paths from freeze_omni_tpu_torch/csrc with
    nvcc for sm_90a, one nvcc per source, all started together (ptxas
-   register/spill report printed);
+   register/spill report printed per kernel);
 3. kernel parity, each kernel against its plain PyTorch version on the same
-   inputs: K1 (int8 weight-only matmul) at every projection shape for N in
-   {1, 89, 232, 1856}, bf16, rtol = atol = 2e-2; K5 (grouped int4 matmul)
-   at every projection shape and the int4 lm_head's (3584 x 152064) for N
-   in {1, 2, 3, 5, 8, SMALL_N} (its split-K small-N path) and {89, 232,
-   1856} (its tile path), group 64, and one shape at group 128, a ragged O
-   (520) with 59 groups over the splits, bf16 at 2e-2 and f32 with TF32 off
-   at 1e-4, with a weight tile of nibble 0; the small path must give
-   bit-identical outputs from two calls, and its launch count must rise on
-   exactly the N <= SMALL_N cases; K2 (int8-KV prefill
-   attention) at B=8, T=29, H=28, Hkv=4, dk=128, S in {1024, 2048} with
-   ragged qend including 0 and a non-finite scale in slot S-1, bf16, 2e-2;
+   inputs: K1 (int8 weight-only matmul, the mma.sync tile path at every N)
+   at every projection shape for N in {1, 8, 17, 89, 232, 233, 1856}, the
+   int8 lm_head at N in {8, 89} and a ragged O (520), with weights of -128
+   and 127, bf16, rtol = atol = 2e-2; K5 (grouped int4 matmul) at every
+   projection shape and the int4 lm_head's (3584 x 152064) for N in {1, 2,
+   3, 5, 8, SMALL_N} (its split-K small-N path) and {17, 89, 232, 233,
+   1856} (its tile path), group 64, and group 128 (K = 18944 among them), a
+   ragged O (520) with 59 groups over the splits, bf16 at 2e-2 and f32
+   with TF32 off at 1e-4, with a weight tile of nibble 0; both kernels must
+   give bit-identical outputs from two calls and count one launch a call,
+   and K5's small-path count must rise on exactly the N <= SMALL_N cases;
+   K2 (int8-KV prefill attention) at B=8, T=29, H=28, Hkv=4, dk=128, S in
+   {1024, 2048} with ragged qend including 0 and a non-finite scale in
+   slot S-1, bf16, 2e-2;
    K3 and K4 (float-cache decode attention) at the LLM shape B=8, H=28,
    Hkv=4, dk=128, S=1024 in bf16 (2e-2: one bf16 rounding of the output)
    and the speech decoder's shape B=8, H=Hkv=14, dk=64, S in {1265, 2048}
@@ -76,7 +79,11 @@ raises and the script exits nonzero without printing a result. Phases:
    bound: max(bytes / 3.35 TB/s, operations / 989 TFLOP/s), counting each
    input byte once and, for K2-K4, only the cache slots this run makes
    visible; beside the plain version's time and, where one PyTorch call
-   computes the same function, that call's time; K5 is timed after phase 9
+   computes the same function, that call's time; K1 and K5 per projection
+   and per layer, also as device time (calls captured in a CUDA graph) and
+   beside a dense bf16 torch.matmul on weights dequantized before the timed
+   window (dense_bf16_ms: a reference ceiling, not the same function, never
+   on the port's path); K5 is timed after phase 9
    on the int4 server's layer-0 projections, at N=232 and at N in {1, 4, 8,
    SMALL_N} (text decode), beside torch._weight_int4pack_mm on the same
    weights (each also as device time: calls captured in a CUDA graph and
@@ -425,12 +432,36 @@ def phase_build():
     log(f"[build] {len(info)} kernels in {time.perf_counter() - t0:.2f} s wall")
     for name, v in info.items():
         log(f"[build] {name}: {v['seconds']:.2f} s")
-        for line in v["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+        for fn, spill, regs in ptxas_report(v["ptxas"]):
+            log(f"[build]   {fn}: {spill}; {regs}")
+
+
+def ptxas_report(text):
+    """(kernel, spill line, register line) for every function in nvcc's
+    -Xptxas -v output, the kernel's name demangled where c++filt exists."""
+    import re
+    import shutil
+
+    rows, fn, spill = [], None, ""
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            rows.append([fn, spill, line.split(":", 1)[-1].strip()])
+            fn = None
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout.splitlines()
+        for r, n in zip(rows, names):
+            n = n.replace("(anonymous namespace)::", "")
+            r[0] = re.sub(r"\(.*\)$", "", n.replace("void ", "", 1))
+    return [tuple(r) for r in rows]
 
 
 K1_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
+TILE_NS = (17, 89, 232, 233, 1856)   # the tile path's N in phase 3
 
 
 def k1_inputs(N, K, O, seed):
@@ -513,35 +544,52 @@ def phase_kernel_parity():
     torch.backends.cuda.matmul.allow_tf32 = False
     tol = 2e-2
     k1_err = 0.0
-    for (K, O) in K1_SHAPES:
-        for N in (1, 89, 232, 1856):
-            x, w_q, scale = k1_inputs(N, K, O, seed=N + K + O)
-            y = qm.quant_matmul(x, w_q, scale)
-            ref = qm.quant_matmul_reference(x, w_q, scale)
-            torch.cuda.synchronize()
-            err, ok = max_violation(y, ref, tol)
-            k1_err = max(k1_err, err)
-            log(f"[parity] K1 N={N} K={K} O={O}: max_abs_err {err:.3e}")
-            if not ok or not torch.isfinite(y.float()).all():
-                raise AssertionError(f"K1 disagrees with its plain version at "
-                                     f"N={N} K={K} O={O}: {err}")
+    k1_cases = [(K, O, N) for (K, O) in K1_SHAPES for N in (1, 8) + TILE_NS]
+    k1_cases += [(3584, 152064, N) for N in (8, 89)]   # the int8 lm_head
+    k1_cases += [(3776, 520, N) for N in (17, 232)]    # ragged O
+    for (K, O, N) in k1_cases:
+        x, w_q, scale = k1_inputs(N, K, O, seed=N + K + O)
+        w_q[:16, :64] = -128   # the ends of int8, -128 beyond the quantizer's
+        w_q[16:32, :64] = 127
+        before = qm.quant_matmul.launches
+        y = qm.quant_matmul(x, w_q, scale)
+        y2 = qm.quant_matmul(x, w_q, scale)
+        ref = qm.quant_matmul_reference(x, w_q, scale)
+        torch.cuda.synchronize()
+        if qm.quant_matmul.launches - before != 2:
+            raise AssertionError(f"K1 at N={N} K={K} O={O}: launch count rose by "
+                                 f"{qm.quant_matmul.launches - before}, not 2")
+        if not torch.equal(y, y2):
+            raise AssertionError(f"K1 gave two results for one input at N={N} "
+                                 f"K={K} O={O}")
+        err, ok = max_violation(y, ref, tol)
+        k1_err = max(k1_err, err)
+        log(f"[parity] K1 N={N} K={K} O={O} splits={qm.tile_plan(N, K, O)[2]}: "
+            f"max_abs_err {err:.3e}; two calls bit-identical")
+        if not ok or not torch.isfinite(y.float()).all():
+            raise AssertionError(f"K1 disagrees with its plain version at "
+                                 f"N={N} K={K} O={O}: {err}")
+        del x, w_q, scale, y, y2, ref
     k5_err = {"small": 0.0, "tile": 0.0}
     small_ns = (1, 2, 3, 5, 8, qm.SMALL_N)
-    cases = [(K, O, N, 64) for (K, O) in K5_SHAPES
-             for N in small_ns + (89, 232, 1856)]
-    cases += [(3584, 3584, N, 128) for N in (8, qm.SMALL_N, 232)]  # coarser group
-    cases += [(3776, 520, N, 64) for N in (5, 232)]   # ragged O, 59 groups
+    cases = [(K, O, N, 64) for (K, O) in K5_SHAPES for N in small_ns + TILE_NS]
+    cases += [(3584, 3584, N, 128) for N in (8, qm.SMALL_N, 17, 232)]  # coarser group
+    cases += [(18944, 3584, 232, 128)]   # K = 18944 split in whole groups of 128
+    cases += [(3776, 520, N, 64) for N in (5, 17, 232)]   # ragged O, 59 groups
     for (K, O, N, group) in cases:
         for dtype, dtol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             x, w_q4, scale4 = k5_inputs(N, K, O, group, dtype, seed=N + K + O)
             small = qm.quant_matmul4.launches_small
+            total = qm.quant_matmul4.launches
             y = qm.quant_matmul4(x, w_q4, scale4, group)
             y2 = qm.quant_matmul4(x, w_q4, scale4, group)
             ref = qm.quant_matmul4_reference(x, w_q4, scale4, group)
             torch.cuda.synchronize()
             path = "small" if N <= qm.SMALL_N else "tile"
-            if qm.quant_matmul4.launches_small - small != 2 * (path == "small"):
-                raise AssertionError(f"K5 at N={N} did not take its {path} path")
+            if qm.quant_matmul4.launches_small - small != 2 * (path == "small") \
+                    or qm.quant_matmul4.launches - total != 2:
+                raise AssertionError(f"K5 at N={N} did not take its {path} path "
+                                     f"once a call")
             if not torch.equal(y, y2):
                 raise AssertionError(f"K5 ({path}) gave two results for one "
                                      f"input at N={N} K={K} O={O}")
@@ -1220,8 +1268,23 @@ def phase_service(smi, int8_llm_bytes):
             "per_response": per_resp}
 
 
+def dense_bf16_ms(x, w):
+    """A dense bf16 torch.matmul on the weights w [K, O] dequantized to bf16
+    before the timed window: a reference ceiling for a kernel that reads the
+    same x, not a call of the same function (it reads 2 bytes a weight),
+    and never on the port's path."""
+    return cuda_time_ms(lambda: torch_matmul(x, w))
+
+
+def torch_matmul(x, w):
+    import torch
+
+    return torch.matmul(x, w)
+
+
 def k1_time(x, w_q, scale):
-    """K1's kernel, plain and library times and its bound on x @ w."""
+    """K1's kernel (eager and device time), plain, library and dense bf16
+    times and its bound on x @ w."""
     import torch
 
     from freeze_omni_tpu_torch.ops import quant_matmul as qm
@@ -1231,11 +1294,16 @@ def k1_time(x, w_q, scale):
     w_t = w_q.t().contiguous()            # the library call wants [O, K]
     s_b = scale.to(torch.bfloat16)        # and scales in x's dtype
     r = {"ms": cuda_time_ms(lambda: qm.quant_matmul(x, w_q, scale)),
+         "device_ms": graph_time_ms(lambda: qm.quant_matmul(x, w_q, scale)),
          "plain_ms": cuda_time_ms(lambda: qm.quant_matmul_reference(x, w_q, scale),
                                   iters=10),
          "library_ms": cuda_time_ms(lambda: torch._weight_int8pack_mm(x, w_t, s_b)),
-         "bytes": K * O + 4 * O + 2 * N * K + 2 * N * O, "ops": 2 * N * K * O}
+         "bytes": K * O + 4 * O + 2 * N * K + 2 * N * O, "ops": 2 * N * K * O,
+         "splits": qm.tile_plan(N, K, O)[2]}
     del w_t
+    w_d = (w_q.float() * scale[None, :]).to(torch.bfloat16)
+    r["dense_bf16_ms"] = dense_bf16_ms(x, w_d)
+    del w_d
     return r
 
 
@@ -1243,7 +1311,8 @@ def k1_layer(layers, lm_head, N, g):
     """One layer's seven projections (and the lm_head when given) at N rows."""
     import torch
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+    total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "dense_bf16_ms": 0.0, "bytes": 0, "ops": 0}
     mats = [(name, layers[name]["w_q"][0], layers[name]["scale"][0])
             for name in ("q", "k", "v", "o", "gate", "up", "down")]
     if lm_head is not None:
@@ -1253,9 +1322,10 @@ def k1_layer(layers, lm_head, N, g):
         x = torch.randn((N, K), generator=g, device="cuda").to(torch.bfloat16)
         r = k1_time(x, w_q, scale)
         b_ms, b_by = bound(r["bytes"], r["ops"])
-        log(f"[time] K1 {name} N={N} K={K} O={O}: kernel {r['ms']:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), plain {r['plain_ms']:.4f} ms, "
-            f"torch._weight_int8pack_mm {r['library_ms']:.4f} ms")
+        log(f"[time] K1 {name} N={N} K={K} O={O} splits={r['splits']}: kernel "
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), bound {b_ms:.4f} ms "
+            f"({b_by}), plain {r['plain_ms']:.4f} ms, torch._weight_int8pack_mm "
+            f"{r['library_ms']:.4f} ms, dense bf16 matmul {r['dense_bf16_ms']:.4f} ms")
         for key in total:
             total[key] += r[key]
     total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["ops"])
@@ -1271,6 +1341,7 @@ def k5_time(x, w_q4, scale4, group):
     import torch
 
     from freeze_omni_tpu_torch.ops import quant_matmul as qm
+    from freeze_omni_tpu_torch.ops.quant import dequantize_weight_int4
 
     N, K = x.shape
     O = w_q4.shape[1]
@@ -1281,6 +1352,10 @@ def k5_time(x, w_q4, scale4, group):
          "library_ms": None, "library_device_ms": None, "library_error": None,
          "bytes": K * O // 2 + 4 * scale4.numel() + 2 * N * K + 2 * N * O,
          "ops": 2 * N * K * O}
+    w_d = dequantize_weight_int4({"w_q4": w_q4, "scale4": scale4},
+                                 dtype=torch.float32).to(torch.bfloat16)
+    r["dense_bf16_ms"] = dense_bf16_ms(x, w_d)
+    del w_d
     try:
         w_t = w_q4.t().contiguous()
         packed = torch._convert_weight_to_int4pack(((w_t & 0xF) << 4) | (w_t >> 4), 8)
@@ -1304,7 +1379,7 @@ def k5_layer(layers, N, g):
     import torch
 
     total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-             "library_device_ms": 0.0, "bytes": 0, "ops": 0}
+             "library_device_ms": 0.0, "dense_bf16_ms": 0.0, "bytes": 0, "ops": 0}
     errors = []
     for name in ("q", "k", "v", "o", "gate", "up", "down"):
         w_q4, scale4 = layers[name]["w_q4"][0], layers[name]["scale4"][0]
@@ -1319,8 +1394,9 @@ def k5_layer(layers, N, g):
                else f"refused: {r['library_error']}")
         log(f"[time] K5 {name} N={N} K={2 * Kp} O={O} group={group}: kernel "
             f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), bound {b_ms:.4f} ms "
-            f"({b_by}), plain {r['plain_ms']:.4f} ms, torch._weight_int4pack_mm {lib}")
-        for key in ("ms", "device_ms", "plain_ms", "bytes", "ops"):
+            f"({b_by}), plain {r['plain_ms']:.4f} ms, torch._weight_int4pack_mm {lib}, "
+            f"dense bf16 matmul {r['dense_bf16_ms']:.4f} ms")
+        for key in ("ms", "device_ms", "plain_ms", "dense_bf16_ms", "bytes", "ops"):
             total[key] += r[key]
         if r["library_error"] is None:
             total["library_ms"] += r["library_ms"]
@@ -1400,6 +1476,14 @@ def phase_kernel_times(engine, tick, resp, errs, smi):
     N = engine.store.max_sessions * 29   # 8+4+13+4 tokens per session per dual tick
     k1 = k1_layer(params["layers"], None, N, g)
     k1_dec = k1_layer(params["layers"], params["lm_head"], engine.store.max_sessions, g)
+    for label, t in ((f"7 projections at N={N}", k1),
+                     (f"7 projections + lm_head at N={engine.store.max_sessions}",
+                      k1_dec)):
+        log(f"[time] K1 one layer's {label} ({smi}): kernel {t['ms']:.4f} ms eager, "
+            f"{t['device_ms']:.4f} ms device, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
+            f"torch._weight_int8pack_mm {t['library_ms']:.4f} ms, dense bf16 "
+            f"matmul {t['dense_bf16_ms']:.4f} ms")
 
     # K2 on the live layer-0 cache: a regular tick's qend (prefixes masked,
     # both identities' 4 chunk tokens valid), and a text-decode step (T = 1)
@@ -1469,7 +1553,10 @@ def phase_kernel_times(engine, tick, resp, errs, smi):
         entry("quant_matmul (K1, one layer's 7 projections at N=232)",
               "freeze_omni_tpu_torch/csrc/quant_matmul.cu",
               "freeze_omni_tpu/ops/quant_matmul.py:41", "quant_matmul", k1,
-              decode_step_N8_with_lm_head=short(k1_dec)),
+              device_ms=k1["device_ms"], dense_bf16_ms=k1["dense_bf16_ms"],
+              decode_step_N8_with_lm_head={
+                  **short(k1_dec), "device_ms": k1_dec["device_ms"],
+                  "dense_bf16_ms": k1_dec["dense_bf16_ms"]}),
         entry("prefill_quant (K2, one layer at B=8 T=29 S=1024)",
               "freeze_omni_tpu_torch/csrc/prefill_quant.cu",
               "freeze_omni_tpu/ops/attention.py:190", "prefill_quant", k2,
@@ -1546,7 +1633,7 @@ def phase_k5_times(serve, errs, smi):
         decode[f"decode_step_N{N}"] = {
             k: t.get(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms", "library_device_ms",
-                                  "library_error")}
+                                  "dense_bf16_ms", "library_error")}
         log(f"[time] K5 one layer's 7 projections at N={N} ({smi}): kernel "
             f"{t['ms']:.4f} ms eager, {t['device_ms']:.4f} ms device, bound "
             f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {t['bound_ms'] / t['ms']:.3f} "
@@ -1557,7 +1644,8 @@ def phase_k5_times(serve, errs, smi):
         f"{k5['ms']:.4f} ms ({k5['device_ms']:.4f} device), bound "
         f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}), plain {k5['plain_ms']:.4f} "
         f"ms, torch._weight_int4pack_mm {k5['library_ms']} ms "
-        f"({k5['library_device_ms']} device)")
+        f"({k5['library_device_ms']} device), dense bf16 matmul "
+        f"{k5['dense_bf16_ms']:.4f} ms")
     crossover = k5_crossover(layers, g)
     launches = serve["launches"]
     return {"name": "quant_matmul4 (K5, one layer's 7 int4 projections at N=232)",
@@ -1569,6 +1657,7 @@ def phase_k5_times(serve, errs, smi):
             "bound_by": k5["bound_by"], "library_ms": k5["library_ms"],
             "library_error": k5.get("library_error"),
             "device_ms": k5["device_ms"], "library_device_ms": k5["library_device_ms"],
+            "dense_bf16_ms": k5["dense_bf16_ms"],
             "launches_small": launches["quant_matmul4_small"],
             "launches_tile": launches["quant_matmul4"] - launches["quant_matmul4_small"],
             "max_abs_err_paths": errs["quant_matmul4_paths"],

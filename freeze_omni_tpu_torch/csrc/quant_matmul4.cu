@@ -8,39 +8,28 @@
 // (ops/quant_matmul.py).
 //
 // What bounds it on an H100: the call moves K*O/2 packed weight bytes and
-// (K/group)*O*4 scale bytes once and does 2*N*K*O operations. At a text
-// decode step (N = 8) it is bound by those bytes, half of K1's; at the
-// serving tick (N = 232) by the tensor cores, as K1 is. The design follows
-// K1 (csrc/quant_matmul.cu): per block a 64 x 128 output tile; each K step of
-// 32 unpacked rows reads 16 packed rows of the weight tile once as uint8_t
-// (four columns per 32-bit word where the layout allows), unpacks both
-// nibbles in registers and writes bf16(q * scale) straight into rows 2i and
-// 2i+1 of a bf16 shared-memory tile, so x needs no even/odd split (that
-// split was a Mosaic workaround on the TPU). The scale changes every `group`
-// rows of K and so does not factor out of the K sum: it is folded into the
-// weight before the product, rounding each weight once to bf16 (the JAX CPU
-// path rounds q * scale in bf16 the same way). The product runs on WMMA
-// 16x16x16 bf16 fragments with f32 accumulation. The alternative, an f32
-// partial per group scaled and added, needs a known accumulator layout
-// (mma.sync) and is left for a later version, with wgmma/TMA and double
-// buffering. `group` is an argument (any even divisor of K); ragged N and O
-// are masked, not padded. Nibbles are read as unsigned bytes, so the value
-// nibble - 8 spans -8..7 (the quantizer never writes nibble 0, -8, but the
-// kernel computes it).
+// (K/group)*O*4 scale bytes once and does 2*N*K*O operations. At the serving
+// tick (N = 232: 8 sessions x 29 tokens) it is bound by operations (one
+// layer's 7 projections: 108 GFLOP, 0.109 ms at 989 TFLOP/s against 0.035
+// ms of bytes); at a text-decode step (N = 8) by the weight bytes. Nibbles
+// are read as unsigned bytes, so the value nibble - 8 spans -8..7 (the
+// quantizer never writes nibble 0, -8, but the kernels compute it). Ragged
+// N and O are masked, not padded.
 //
-// f32 activations (the CPU-parity configuration) take a SIMT path with f32
-// FMAs on f32 q * scale, so a float32 engine on the card keeps float32
-// arithmetic.
+// Two paths for bf16 activations, chosen by the wrapper
+// (ops/quant_matmul.quant_matmul4) from N:
 //
-// Two paths, chosen by the wrapper (ops/quant_matmul.quant_matmul4) from N:
-//
-// - N > SMALL_N (the serving tick, N = 96-232): bound by operations. The
-//   WMMA tile path above (w4a16_wmma_kernel, w4a32_simt_kernel).
+// - N > SMALL_N (the tick): the tile path, the mma.sync mainloop that K1
+//   shares (wonly_tile.cuh) with K5's weight policy W4Tile below: a
+//   4-stage cp.async ring of x and packed weight tiles, so three K steps
+//   are in flight while one is summed; the packed bytes unpacked in
+//   registers into exact bf16 pairs and scaled by their group's scale as a
+//   bf16 pair before the mma; split-K in whole groups (ops/quant_matmul.
+//   tile_plan) where the tile grid is under two waves of 132 SMs (q, k, v, o
+//   and down at N = 232). Groups must be whole 16-row K steps.
 // - N <= SMALL_N (text decode, N = sessions speaking, 1-8): bound by bytes,
 //   the packed weights and the scales, which every output row shares. The
-//   tile path wastes most of a 64-row tile there, launches too few blocks
-//   for 132 SMs (28 at O = 3584) and walks all of K per block with 4-byte
-//   loads. The small-N path (w4_small_kernel) instead:
+//   small-N path (w4_small_kernel, w4a16_small_mma_kernel):
 //   * reads every packed byte and every scale once, with 16-byte cp.async
 //     loads of packed rows: lane l of a warp takes 4 columns of a 128-column
 //     slab, and the warp stages up to 32 packed rows of its slab (4 KB) in
@@ -65,13 +54,16 @@
 //   spends ~90 instructions per packed word at N = 8, which bounds the
 //   kernel by instruction issue instead of bytes (measured on the card:
 //   1.5x torch._weight_int4pack_mm's device time, PERF.md).
+//
+// f32 activations (the CPU-parity configuration) at N > SMALL_N take a SIMT
+// path with f32 FMAs on f32 q * scale (w4a32_simt_kernel), so a float32
+// engine on the card keeps float32 arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "wonly_tile.cuh"
 
 namespace {
 
@@ -82,121 +74,6 @@ __device__ __forceinline__ float nib_lo(uint32_t b) {
 }
 __device__ __forceinline__ float nib_hi(uint32_t b) {
   return static_cast<float>(static_cast<int>((b >> 4) & 0xFu) - 8);
-}
-
-// ---- bf16 activations: WMMA tensor-core path ------------------------------
-constexpr int BM = 64;   // rows of x per block
-constexpr int BN = 128;  // output columns per block
-constexpr int BK = 32;   // unpacked K rows per step (16 packed rows)
-constexpr int A_LD = BK + 8;   // bf16 elements; 80-byte rows
-constexpr int B_LD = BN + 8;   // bf16 elements; 272-byte rows
-constexpr int C_LD = BN + 4;   // floats
-
-__global__ void __launch_bounds__(kThreads)
-w4a16_wmma_kernel(const __nv_bfloat16* __restrict__ x,
-                  const uint8_t* __restrict__ w,
-                  const float* __restrict__ scale,
-                  __nv_bfloat16* __restrict__ y, int N, int K, int O,
-                  int group, int vec4) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM * A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK * B_LD];
-  __shared__ __align__(128) float Cs[BM * C_LD];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 4;  // 2 warp rows of 32
-  const int wn = warp % 4;  // 4 warp columns of 32
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  const int Kp = K / 2;
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += kThreads) {
-      const int r = i / BK, c = i % BK;
-      const int gr = row0 + r, gc = k0 + c;
-      As[r * A_LD + c] = (gr < N && gc < K) ? x[(size_t)gr * K + gc] : zero;
-    }
-    const int p0 = k0 / 2;
-    if (vec4) {  // O % 4 == 0, w 4-byte and scale 16-byte aligned
-      for (int i = tid; i < (BK / 2) * (BN / 4); i += kThreads) {
-        const int pr = i / (BN / 4), c = (i % (BN / 4)) * 4;
-        const int gp = p0 + pr, gc = col0 + c;
-        __nv_bfloat16* lo = Bs + (2 * pr) * B_LD + c;
-        __nv_bfloat16* hi = lo + B_LD;
-        if (gp < Kp && gc < O) {
-          const uchar4 v = *reinterpret_cast<const uchar4*>(w + (size_t)gp * O + gc);
-          const float4 s = *reinterpret_cast<const float4*>(
-              scale + (size_t)((2 * gp) / group) * O + gc);
-          lo[0] = __float2bfloat16(nib_lo(v.x) * s.x);
-          lo[1] = __float2bfloat16(nib_lo(v.y) * s.y);
-          lo[2] = __float2bfloat16(nib_lo(v.z) * s.z);
-          lo[3] = __float2bfloat16(nib_lo(v.w) * s.w);
-          hi[0] = __float2bfloat16(nib_hi(v.x) * s.x);
-          hi[1] = __float2bfloat16(nib_hi(v.y) * s.y);
-          hi[2] = __float2bfloat16(nib_hi(v.z) * s.z);
-          hi[3] = __float2bfloat16(nib_hi(v.w) * s.w);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) lo[j] = hi[j] = zero;
-        }
-      }
-    } else {
-      for (int i = tid; i < (BK / 2) * BN; i += kThreads) {
-        const int pr = i / BN, c = i % BN;
-        const int gp = p0 + pr, gc = col0 + c;
-        __nv_bfloat16 lo = zero, hi = zero;
-        if (gp < Kp && gc < O) {
-          const uint32_t b = w[(size_t)gp * O + gc];
-          const float s = scale[(size_t)((2 * gp) / group) * O + gc];
-          lo = __float2bfloat16(nib_lo(b) * s);
-          hi = __float2bfloat16(nib_hi(b) * s);
-        }
-        Bs[(2 * pr) * B_LD + c] = lo;
-        Bs[(2 * pr + 1) * B_LD + c] = hi;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * B_LD + wn * 32 + j * 16, B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16,
-                              acc[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * BN; i += kThreads) {
-    const int r = i / BN, c = i % BN;
-    const int gr = row0 + r, gc = col0 + c;
-    if (gr < N && gc < O)
-      y[(size_t)gr * O + gc] = __float2bfloat16(Cs[r * C_LD + c]);
-  }
 }
 
 // ---- f32 activations: SIMT path -------------------------------------------
@@ -274,32 +151,11 @@ __device__ __forceinline__ float load_f(float v) { return v; }
 __device__ __forceinline__ float load_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-template <typename T> __device__ __forceinline__ T store_f(float v);
-template <> __device__ __forceinline__ float store_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 store_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
 // byte j of v4 (a nibble, 0..15) as the float nibble - 8: the byte goes into
 // the mantissa of 2^23, and 2^23 + 8 comes off exactly
 template <int j>
 __device__ __forceinline__ float nib_f(uint32_t v4) {
   return __int_as_float(__byte_perm(v4, 0x4B000000u, 0x7540 | j)) - 8388616.0f;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;   // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(n));
 }
 
 // Stage packed rows [p0, p0 + rows) x columns [col0, col0 + 128) of w into
@@ -463,15 +319,6 @@ __device__ __forceinline__ uint32_t nib_pair(uint32_t lo4, uint32_t hi4) {
   __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&r);
   v = __hsub2(v, __floats2bfloat162_rn(136.0f, 136.0f));
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The small-N path for bf16 activations and groups of whole 16-row K steps:
@@ -653,17 +500,6 @@ w4a16_small_mma_kernel(const __nv_bfloat16* __restrict__ x,
       }
 }
 
-// y[i] = sum over s of ws[s, i], s in order, in y's type
-template <typename T>
-__global__ void split_sum_kernel(const float* __restrict__ ws,
-                                 T* __restrict__ y, int splits, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float sum = 0.0f;
-  for (int s = 0; s < splits; ++s) sum += ws[(size_t)s * total + i];
-  y[i] = store_f<T>(sum);
-}
-
 template <typename T, int NP, bool VEC>
 cudaError_t launch_small_np(const T* x, const uint8_t* w, const float* scale,
                             float* ws, int N, int K, int O, int group,
@@ -734,6 +570,56 @@ cudaError_t launch_mma(const __nv_bfloat16* x, const uint8_t* w,
                                splits, smem_tiles, s);
 }
 
+// ---- bf16 activations, N > SMALL_N: the tile path (wonly_tile.cuh) --------
+// K5's weight policy. A staged K step holds 32 packed rows (64 k) of the
+// block's columns, 160 or 288 bytes a row (128 or 256 columns + 32: packed
+// rows t = 0..3 then start 8 banks apart, so the 8 x 4 lanes' word loads hit
+// 32 banks). For 16-k step ks, lane (g, t) reads the words of columns
+// 4g..4g+3 and 32+4g..32+4g+3 of packed rows 8ks + t (k = 2t, 2t + 1) and
+// 8ks + t + 4 (k = 2t + 8, 2t + 9); byte m of a word holds both k of one
+// column, which nib_pair turns into the exact bf16 pair (nibble - 8). The
+// mainloop multiplies each pair by its group's scale as a bf16 pair
+// (__hmul2) before the mma: one f32 accumulator set, and q x scale rounded
+// to bf16 as the JAX bf16 path rounds it (the scale itself is rounded to
+// bf16 first). Folding the scale on f32 per-group
+// partials, as the small path does, would need a second accumulator set of
+// 64 registers a thread.
+template <int J>
+__device__ __forceinline__ void w4_col(uint32_t (&a)[4], const uint32_t (&lo)[4],
+                                       const uint32_t (&hi)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) a[r] = nib_pair<J>(lo[r], hi[r]);
+}
+
+struct W4Tile {
+  static constexpr int kRows = kTileK / 2;
+  static constexpr int kPad = 32;
+  static constexpr bool kGroups = true;
+  static constexpr bool kColScale = false;
+  __device__ static __forceinline__ void a_frags(const unsigned char* wt,
+                                                 int stride, int ks, int g,
+                                                 int t, uint32_t (&a)[4][4]) {
+    const unsigned char* r0 = wt + (ks * 8 + t) * stride + 4 * g;
+    const unsigned char* r1 = r0 + 4 * stride;
+    // A registers: [0] row g, k 2t; [1] row g + 8, k 2t; [2] row g, k 2t + 8;
+    // [3] row g + 8, k 2t + 8
+    const uint32_t v[4] = {*reinterpret_cast<const uint32_t*>(r0),
+                           *reinterpret_cast<const uint32_t*>(r0 + 32),
+                           *reinterpret_cast<const uint32_t*>(r1),
+                           *reinterpret_cast<const uint32_t*>(r1 + 32)};
+    uint32_t lo[4], hi[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      lo[r] = v[r] & 0x0F0F0F0Fu;
+      hi[r] = (v[r] >> 4) & 0x0F0F0F0Fu;
+    }
+    w4_col<0>(a[0], lo, hi);
+    w4_col<1>(a[1], lo, hi);
+    w4_col<2>(a[2], lo, hi);
+    w4_col<3>(a[3], lo, hi);
+  }
+};
+
 // bf16 activations with groups of whole 16-row K steps take the
 // tensor-core variant; f32 activations and other groups the f32 FMA one
 template <typename T>
@@ -783,41 +669,41 @@ cudaError_t launch_small(const T* x, const uint8_t* w, const float* scale,
                                         warps, gps, splits, smem_tiles, vec, s);
   if (err != cudaSuccess) return err;
   const int total = N * O;
-  split_sum_kernel<T><<<(total + 255) / 256, 256, 0, s>>>(ws, y, splits, total);
+  split_sum_kernel<T><<<(total + 255) / 256, 256, 0, s>>>(ws, y, splits, total,
+                                                           nullptr, O);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32 activations, 1 = bfloat16 activations. x [N, K],
-// w [K/2, O] packed uint8, scale [K/group, O] float32, y [N, O] in x's dtype,
-// all dense row-major. Returns the cudaError_t of the launch (0 = success).
-// Launches on `stream`, allocates nothing, does not synchronise.
+// The tile path. dtype: 0 = float32 activations (w4a32_simt_kernel; ws and
+// the plan unused), 1 = bfloat16 (the mma.sync tile kernel of
+// wonly_tile.cuh; group % 16 == 0). x [N, K], w [K/2, O] packed uint8,
+// scale [K/group, O] float32, y [N, O] in x's dtype, all dense row-major;
+// ws a float32 workspace of [splits, N, O] (null when splits == 1); the
+// plan (nt, wr, splits, kps) is ops/quant_matmul.tile_plan's. Returns the
+// cudaError_t of the launches (0 = success). Launches on `stream`,
+// allocates nothing, does not synchronise.
 extern "C" int quant_matmul4_launch(int dtype, const void* x, const void* w,
-                                    const void* scale, void* y, int N, int K,
-                                    int O, int group, void* stream) {
+                                    const void* scale, void* y, void* ws,
+                                    int N, int K, int O, int group, int nt,
+                                    int wr, int splits, int kps, void* stream) {
   if (group <= 0 || group % 2 != 0 || K % group != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    // word loads of w and float4 loads of scale need whole 4-column groups
-    // on aligned bases
-    const int vec4 = O % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(scale) % 16 == 0;
-    dim3 grid((O + BN - 1) / BN, (N + BM - 1) / BM);
-    w4a16_wmma_kernel<<<grid, kThreads, 0, s>>>(
+    if (group % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(tile_launch<W4Tile>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
         static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y),
-        N, K, O, group, vec4);
-  } else if (dtype == 0) {
-    dim3 grid((O + FBN - 1) / FBN, (N + FBM - 1) / FBM);
-    w4a32_simt_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const uint8_t*>(w),
-        static_cast<const float*>(scale), static_cast<float*>(y), N, K, O,
-        group);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+        static_cast<float*>(ws), N, K, O, group, nt, wr, splits, kps, s));
   }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((O + FBN - 1) / FBN, (N + FBM - 1) / FBM);
+  w4a32_simt_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const uint8_t*>(w),
+      static_cast<const float*>(scale), static_cast<float*>(y), N, K, O,
+      group);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,8 +6,9 @@ nvcc for sm_90a into a shared library at first use and loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited kernel
-is rebuilt and a built one is reused. The build directory is
+The file name carries a hash of the source, of every header in csrc/ and of
+the flags, so an edited kernel or header is rebuilt and a built one is
+reused. The build directory is
 freeze_omni_tpu_torch/.kernel_build (listed in .gitignore). A missing nvcc or
 a failed build raises; nothing falls back to the plain versions.
 """
@@ -51,6 +52,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.name.encode() + header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

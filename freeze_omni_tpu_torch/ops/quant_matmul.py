@@ -15,12 +15,14 @@ back to the plain version. N and O may be ragged (any N >= 1): the kernels
 mask the edges instead of padding. `quant_matmul.launches` and
 `quant_matmul4.launches` count kernel launches.
 
-K5 has two paths. N <= SMALL_N (a text-decode step) is bound by the weight
-bytes and takes the split-K path: `small_plan` picks its grid, and a float32
-workspace of [splits, N, O], kept per card and stream, holds the partials
-that a second, small kernel sums in a fixed order. Larger N (the tick) is
-bound by operations and takes the WMMA tile path.
-`quant_matmul4.launches_small` counts the small path's launches, and
+bf16 activations take the tile path (csrc/wonly_tile.cuh), one mma.sync
+mainloop that K1 and K5 share: `tile_plan` picks its warp tiling and its K
+splits, and a float32 workspace of [splits, N, O], kept per card and
+stream, holds the partials that a second, small kernel sums in a fixed
+order. K1 takes it at every N. K5 has a second path: N <= SMALL_N (a
+text-decode step) is bound by the weight bytes and takes the split-K
+small-N path planned by `small_plan`; larger N (the tick) takes the tile
+path. `quant_matmul4.launches_small` counts the small path's launches, and
 `quant_matmul4.launches` both paths'.
 """
 
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -59,9 +62,11 @@ def quant_matmul4_reference(x: torch.Tensor, w_q4: torch.Tensor,
 
 
 def _lib(name: str, n_ints: int):
+    """The tile launch function of kernel `name`: (dtype, x, w, scale, y,
+    ws, n_ints ints, stream)."""
     fn = getattr(_build.load(name), f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + \
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + \
             [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -93,21 +98,27 @@ def _check_cuda_args(x, w_q, scale) -> None:
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
     """x: [N, K] bf16/f32; w_q: [K, O] int8; scale: [O] f32 -> [N, O] x.dtype."""
-    if x.device.type == "cpu":
-        return quant_matmul_reference(x, w_q, scale)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return quant_matmul_reference(x, w_q, scale)
         raise ValueError(f"quant_matmul: unsupported device {x.device}")
+    dev = x.get_device()
+    if dev != torch.cuda.current_device():   # launch on x's card
+        with torch.cuda.device(dev):
+            return quant_matmul(x, w_q, scale)
     _check_cuda_args(x, w_q, scale)
     N, K = x.shape
     O = w_q.shape[1]
-    y = torch.empty((N, O), dtype=x.dtype, device=x.device)
+    y = x.new_empty((N, O))
     if N == 0 or O == 0:
         return y
-    fn = _lib("quant_matmul", 3)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w_q.data_ptr(),
-                 scale.data_ptr(), y.data_ptr(), N, K, O, stream)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    nt, wr, splits, kps = tile_plan(N, K, O)
+    ws = _workspace(dev, stream, splits * N * O) \
+        if splits > 1 and x.dtype == torch.bfloat16 else None
+    err = _lib("quant_matmul", 7)(_DTYPE_CODE[x.dtype], x.data_ptr(),
+                                  w_q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                                  ws, N, K, O, nt, wr, splits, kps, stream)
     _build.check(err, "quant_matmul")
     quant_matmul.launches += 1
     return y
@@ -180,6 +191,57 @@ def small_plan(N: int, K: int, O: int, group: int) -> Tuple[int, int]:
     return warps, splits
 
 
+# The tile path (csrc/wonly_tile.cuh): K steps of TILE_K k, TILE_STAGES of
+# them in a block's shared-memory ring; 4 warps a block, each 64 output
+# columns x 8 * nt rows
+TILE_K = 64
+TILE_STAGES = 4
+_TILE_WARPS = 4
+_X_ROW_BYTES = TILE_K * 2 + 16    # a staged x row, padded
+SMEM_PER_BLOCK = 227 * 1024       # an H100 block's dynamic shared memory, at most
+# the split partials of one tile-path call, at most: splits are added only
+# while the grid has fewer than _MIN_BLOCKS tiles, so splits x tiles <
+# 2 x _MIN_BLOCKS, and a tile holds at most 64 x 128 or 32 x 256 outputs
+TILE_WORKSPACE_BYTES = 2 * _MIN_BLOCKS * 64 * 128 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(N: int, K: int, O: int,
+              group: Optional[int] = None) -> Tuple[int, int, int, int]:
+    """(nt, wr, splits, kps) of the tile path for x [N, K] @ W [K, O]: a
+    warp takes nt n8 tiles of rows (8 * nt rows) and 64 columns, wr of the
+    block's 4 warps stack along the rows and 4 // wr along the columns; K
+    is cut into `splits` runs of `kps` K steps (the last may be shorter,
+    none is empty). N <= 32 takes one warp row of 8, 16 or 32 rows and 256
+    columns a block, larger N 2 x 2 warps (64 rows x 128 columns). Splits
+    are added while the tile grid has fewer than 2 x 132 blocks, in whole
+    K steps and, for K5 (`group` given), in whole groups."""
+    nt = 1 if N <= 8 else 2 if N <= 16 else 4
+    wr = 1 if N <= 32 else 2
+    rows, cols = 8 * nt * wr, 64 * (_TILE_WARPS // wr)
+    tiles = -(-N // rows) * -(-O // cols)
+    steps = -(-K // TILE_K)
+    unit = 1 if group is None else math.lcm(TILE_K, group) // TILE_K
+    units = -(-steps // unit)
+    splits = 1 if tiles >= _MIN_BLOCKS else min(units, -(-_MIN_BLOCKS // tiles))
+    kps = -(-units // splits) * unit
+    return nt, wr, -(-steps // kps), kps
+
+
+def tile_smem_bytes(nt: int, wr: int, int4: bool) -> int:
+    """Dynamic shared memory of a tile-path block (wonly_tile.cuh's
+    tile_stage_bytes times the stages): the x tile, the weight tile (K1: 64
+    int8 rows, K5: 32 packed rows, padded) and, for K5, up to 4 scale rows,
+    per stage."""
+    cols = 64 * (_TILE_WARPS // wr)
+    stage = 8 * nt * wr * _X_ROW_BYTES
+    if int4:
+        stage += TILE_K // 2 * (cols + 32) + TILE_K // 16 * cols * 4
+    else:
+        stage += TILE_K * (cols + 16)
+    return TILE_STAGES * stage
+
+
 def takes_small_path(N: int, group: int) -> bool:
     """Whether quant_matmul4 sends N rows to the small-N path: N <= SMALL_N
     and one group's x slice fits a block's shared memory."""
@@ -222,9 +284,17 @@ def quant_matmul4(x: torch.Tensor, w_q4: torch.Tensor, scale4: torch.Tensor,
                            _workspace(dev, stream, splits * N * O), N, K, O,
                            group, warps, splits, stream)
     else:
-        err = _lib("quant_matmul4", 4)(
+        bf16 = x.dtype == torch.bfloat16
+        if bf16 and group % 16:
+            raise ValueError(f"quant_matmul4: the tile path takes bf16 groups "
+                             f"of whole 16-row K steps, got group {group}")
+        nt, wr, splits, kps = tile_plan(N, K, O, group)
+        ws = _workspace(dev, stream, splits * N * O) \
+            if splits > 1 and bf16 else None
+        err = _lib("quant_matmul4", 8)(
             _DTYPE_CODE[x.dtype], x.data_ptr(), w_q4.data_ptr(),
-            scale4.data_ptr(), y.data_ptr(), N, K, O, group, stream)
+            scale4.data_ptr(), y.data_ptr(), ws, N, K, O, group, nt, wr,
+            splits, kps, stream)
     _build.check(err, "quant_matmul4")
     quant_matmul4.launches += 1
     quant_matmul4.launches_small += small
@@ -247,7 +317,8 @@ def _small_lib():
 
 
 def _workspace(dev: int, stream: int, n: int) -> int:
-    """Device pointer of the small path's float32 split partials (n floats):
+    """Device pointer of the split partials of K5's small path and of the
+    tile path (n floats):
     one buffer per (card, stream), grown on demand and reused, since
     launches on one stream run in order. A replaced buffer was allocated on
     this stream, so the caching allocator hands it out again only in this

@@ -146,6 +146,49 @@ def test_quant_matmul4_small_path_matches_plain(cuda, dtype, K, O, N, group):
     torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
 
 
+PROJ = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
+TILE_NS = (17, 89, 232, 233, 1856)
+TILE_CASES = [("K5", K, O, N, 64) for (K, O) in PROJ for N in TILE_NS] + [
+    ("K5", 3584, 3584, 17, 128), ("K5", 3584, 3584, 232, 128),   # coarser group
+    ("K5", 18944, 3584, 232, 128),     # K = 18944, split in whole groups of 128
+    ("K5", 3776, 520, 17, 64), ("K5", 3776, 520, 232, 64),   # ragged O
+] + [("K1", K, O, N, None) for (K, O) in PROJ for N in (1, 8) + TILE_NS] + [
+    ("K1", 3584, 152064, 8, None), ("K1", 3584, 152064, 89, None),   # lm_head
+    ("K1", 3776, 520, 17, None), ("K1", 3776, 520, 232, None),      # ragged O
+]
+
+
+@pytest.mark.parametrize("kernel,K,O,N,group", TILE_CASES)
+def test_tile_path_matches_plain(cuda, kernel, K, O, N, group):
+    """The mma.sync tile path (bf16) of K5 at N > SMALL_N and of K1 at every
+    N agrees with the plain version, gives bit-identical outputs from two
+    calls, and counts one launch a call (K5's small path none). K5's
+    weights have a tile of nibble 0; K1's hold -128 and 127."""
+    if kernel == "K5":
+        assert not qm.takes_small_path(N, group)
+        x, w, s = _q4_inputs_nib0(N, K, O, group, torch.bfloat16, cuda, seed=N + O)
+        fn = qm.quant_matmul4
+        run = lambda: fn(x, w, s, group)   # noqa: E731
+        ref = qm.quant_matmul4_reference(x, w, s, group)
+    else:
+        x, w, s = _qm_inputs(N, K, O, torch.bfloat16, cuda, seed=N + O)
+        w[:16, :64] = -128
+        w[16:32, :64] = 127
+        fn = qm.quant_matmul
+        run = lambda: fn(x, w, s)   # noqa: E731
+        ref = qm.quant_matmul_reference(x, w, s)
+    total = fn.launches
+    small = qm.quant_matmul4.launches_small
+    y = run()
+    y2 = run()
+    torch.cuda.synchronize()
+    assert fn.launches == total + 2
+    assert qm.quant_matmul4.launches_small == small
+    assert torch.equal(y, y2)
+    assert y.dtype == torch.bfloat16 and y.shape == (N, O)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.parametrize("N", [12, 24, 32])
 def test_quant_matmul4_paths_agree_when_forced(cuda, N):
     """Both paths forced at one N (as the crossover timing runs them) give
