@@ -25,9 +25,14 @@ raises and the script exits nonzero without printing a result. Phases:
    with TF32 off at 1e-4, with a weight tile of nibble 0; both kernels must
    give bit-identical outputs from two calls and count one launch a call,
    and K5's small-path count must rise on exactly the N <= SMALL_N cases;
-   K2 (int8-KV prefill attention) at B=8, T=29, H=28, Hkv=4, dk=128, S in
-   {1024, 2048} with ragged qend including 0 and a non-finite scale in
-   slot S-1, bf16, 2e-2;
+   K2 (int8-KV prefill attention, bf16: the split-S tensor-core kernel) at
+   B=8, H=28, Hkv=4, dk=128 with a non-finite scale in slot S-1: T=29 with
+   ragged qend including 0 at S in {1024, 2048}, the text step (T=1, qend
+   = length + 1, one row at S-1), the tick's mask (8 of 29 tokens valid,
+   one row's last at S-1, S=2048) and the role prefill (T=89: ten row
+   tiles a (row, kv head), one split each),
+   2e-2 on valid rows, masked rows zero, two calls bit-identical and one
+   launch a call;
    K3 and K4 (float-cache decode attention) at the LLM shape B=8, H=28,
    Hkv=4, dk=128, S=1024 in bf16 (2e-2: one bf16 rounding of the output)
    and the speech decoder's shape B=8, H=Hkv=14, dk=64, S in {1265, 2048}
@@ -83,7 +88,11 @@ raises and the script exits nonzero without printing a result. Phases:
    and per layer, also as device time (calls captured in a CUDA graph) and
    beside a dense bf16 torch.matmul on weights dequantized before the timed
    window (dense_bf16_ms: a reference ceiling, not the same function, never
-   on the port's path); K5 is timed after phase 9
+   on the port's path); K2 at the tick (T=29) and the text step (T=1) on
+   the live layer-0 cache, eager and as device time, beside
+   scaled_dot_product_attention on that cache dequantized to bf16 before
+   the timed window with the qend mask (sdpa_bf16_ms: a reference ceiling,
+   not the same function, never on the path); K5 is timed after phase 9
    on the int4 server's layer-0 projections, at N=232 and at N in {1, 4, 8,
    SMALL_N} (text decode), beside torch._weight_int4pack_mm on the same
    weights (each also as device time: calls captured in a CUDA graph and
@@ -124,8 +133,6 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 BUDGET_MS = 224.0              # one gating chunk of audio
 TTS_MAX_TOKENS = 200           # codec tokens per pooled sentence (default 1000)
 PARITY_TTS_MAX_TOKENS = 120
@@ -144,58 +151,6 @@ def tree_to(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_to(v, device) for v in tree)
     return tree.to(device)
-
-
-def cuda_time_ms(fn, iters=50, warmup=5):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_time_ms(fn, calls=20, replays=10):
-    """Device time of one call of fn: `calls` calls captured in one CUDA
-    graph (after warm-up calls on the capture stream) and replayed, timed
-    with CUDA events. Unlike cuda_time_ms this leaves out the host's time
-    per call, which bounds eager back-to-back calls of the narrow shapes."""
-    import torch
-
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / (replays * calls)
-
-
-def bound(nbytes, nops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / BF16_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def max_violation(out, ref, tol):
@@ -494,7 +449,19 @@ def k5_inputs(N, K, O, group, dtype, seed):
     return x, w_q4, scale4
 
 
-def k2_inputs(B, T, H, Hkv, dk, S, seed):
+# K2's phase-3 cases: (label, B, T, S, qend kind)
+K2_CASES = (("ragged", 8, 29, 1024, "ragged"), ("ragged", 8, 29, 2048, "ragged"),
+            ("text step", 8, 1, 1024, "text"), ("tick mask", 8, 29, 2048, "tick"),
+            ("role prefill", 8, 89, 1024, "prefill"))
+TICK_VALID = (8, 9, 10, 11, 25, 26, 27, 28)   # a dual tick's valid tokens of 29
+
+
+def k2_inputs(B, T, H, Hkv, dk, S, seed, qend_kind="ragged"):
+    """bf16 q against a random int8 cache with a non-finite scale in slot
+    S-1. qend: "ragged" (row lengths in [S/8, S-T-1), 30% of the tokens
+    masked, the last row all masked), "text" (T = 1, length + 1, one row
+    at S-1), "tick" (TICK_VALID see length + rank + 1, the rest masked;
+    the first row's last token at S-1) or "prefill" (every token valid)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -508,9 +475,18 @@ def k2_inputs(B, T, H, Hkv, dk, S, seed):
     v_s = 0.01 + 0.05 * torch.rand((B, S, Hkv), generator=g, device=dev)
     lengths = torch.randint(S // 8, S - T - 1, (B,), generator=g, device=dev)
     qend = lengths[:, None] + torch.arange(1, T + 1, device=dev)[None, :]
-    qend = torch.where(torch.rand((B, T), generator=g, device=dev) < 0.3,
-                       torch.zeros_like(qend), qend)
-    qend[-1] = 0
+    if qend_kind == "ragged":
+        qend = torch.where(torch.rand((B, T), generator=g, device=dev) < 0.3,
+                           torch.zeros_like(qend), qend)
+        qend[-1] = 0
+    elif qend_kind == "text":
+        lengths[0] = S - 2
+        qend = (lengths + 1)[:, None]
+    elif qend_kind == "tick":
+        lengths[0] = S - 1 - len(TICK_VALID)
+        qend = torch.zeros((B, T), dtype=torch.long, device=dev)
+        for rank, t in enumerate(TICK_VALID):
+            qend[:, t] = lengths + rank + 1
     k_s[:, S - 1] = float("nan")   # the scratch slot may hold anything
     v_s[:, S - 1] = float("inf")
     return q, k_q, k_s, v_q, v_s, qend.to(torch.int32)
@@ -605,20 +581,32 @@ def phase_kernel_parity():
                                      f"{err}")
             del x, w_q4, scale4, y, y2, ref
     k2_err = 0.0
-    for S in (1024, 2048):
-        q, k_q, k_s, v_q, v_s, qend = k2_inputs(8, 29, 28, 4, 128, S, seed=S)
+    for label, B, T, S, qend_kind in K2_CASES:
+        q, k_q, k_s, v_q, v_s, qend = k2_inputs(B, T, 28, 4, 128, S, seed=S,
+                                                qend_kind=qend_kind)
+        before = att.prefill_quant.launches
         out = att.prefill_quant(q, k_q, k_s, v_q, v_s, qend)
+        out2 = att.prefill_quant(q, k_q, k_s, v_q, v_s, qend)
         ref = att.prefill_quant_reference(q, k_q, k_s, v_q, v_s, qend)
         torch.cuda.synchronize()
         valid = qend > 0
-        if not torch.isfinite(out.float()).all():
-            raise AssertionError(f"K2 wrote non-finite values at S={S}")
+        if att.prefill_quant.launches - before != 2:
+            raise AssertionError(f"K2 {label}: launch count rose by "
+                                 f"{att.prefill_quant.launches - before}, not 2")
+        if not torch.equal(out, out2):
+            raise AssertionError(f"K2 gave two results for one input ({label})")
+        if not torch.isfinite(out.float()).all() or (out[~valid] != 0).any():
+            raise AssertionError(f"K2 wrote non-finite values or a nonzero "
+                                 f"masked row ({label})")
         err, ok = max_violation(out[valid], ref[valid], tol)
         k2_err = max(k2_err, err)
-        log(f"[parity] K2 B=8 T=29 H=28 Hkv=4 dk=128 S={S}: max_abs_err "
-            f"{err:.3e} on {int(valid.sum())} valid rows; qend=0 rows finite")
+        plan = att.prefill_plan(B, T, 28, 4, 128, S)
+        log(f"[parity] K2 {label} B={B} T={T} H=28 Hkv=4 dk=128 S={S} (rows "
+            f"{plan.rows}, splits {plan.splits}): max_abs_err {err:.3e} on "
+            f"{int(valid.sum())} valid rows; qend=0 rows zero; two calls "
+            f"bit-identical")
         if not ok:
-            raise AssertionError(f"K2 disagrees with its plain version at S={S}")
+            raise AssertionError(f"K2 disagrees with its plain version ({label})")
     dec_err = {"decode_attention": 0.0, "decode_attention_blocked": 0.0}
     for (B, H, Hkv, dk, S, dtype, dtol) in (
             (8, 28, 4, 128, 1024, torch.bfloat16, 2e-2),   # LLM text decode
@@ -1273,6 +1261,8 @@ def dense_bf16_ms(x, w):
     before the timed window: a reference ceiling for a kernel that reads the
     same x, not a call of the same function (it reads 2 bytes a weight),
     and never on the port's path."""
+    from freeze_omni_tpu_torch.bin.timing import cuda_time_ms
+
     return cuda_time_ms(lambda: torch_matmul(x, w))
 
 
@@ -1287,6 +1277,7 @@ def k1_time(x, w_q, scale):
     times and its bound on x @ w."""
     import torch
 
+    from freeze_omni_tpu_torch.bin.timing import bound, cuda_time_ms, graph_time_ms
     from freeze_omni_tpu_torch.ops import quant_matmul as qm
 
     N, K = x.shape
@@ -1310,6 +1301,8 @@ def k1_time(x, w_q, scale):
 def k1_layer(layers, lm_head, N, g):
     """One layer's seven projections (and the lm_head when given) at N rows."""
     import torch
+
+    from freeze_omni_tpu_torch.bin.timing import bound
 
     total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
              "dense_bf16_ms": 0.0, "bytes": 0, "ops": 0}
@@ -1340,6 +1333,7 @@ def k5_time(x, w_q4, scale4, group):
     version, and if this torch build refuses it, its error is returned."""
     import torch
 
+    from freeze_omni_tpu_torch.bin.timing import bound, cuda_time_ms, graph_time_ms
     from freeze_omni_tpu_torch.ops import quant_matmul as qm
     from freeze_omni_tpu_torch.ops.quant import dequantize_weight_int4
 
@@ -1377,6 +1371,8 @@ def k5_time(x, w_q4, scale4, group):
 def k5_layer(layers, N, g):
     """One layer's seven int4 projections at N rows."""
     import torch
+
+    from freeze_omni_tpu_torch.bin.timing import bound
 
     total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
              "library_device_ms": 0.0, "dense_bf16_ms": 0.0, "bytes": 0, "ops": 0}
@@ -1418,23 +1414,31 @@ def llm_bytes(llm):
 
 
 def k2_time(kv, qend, H, g):
+    """K2 on the live layer-0 cache with `qend`: eager and device time
+    (graph_time_ms), the bound (bin/k2_profile.k2_bound), the plain
+    version, and sdpa_bf16_ms: scaled_dot_product_attention on the cache
+    dequantized to bf16 before the timed window, with the qend mask
+    (bin/k2_profile.sdpa_bf16: a reference ceiling, not the same function,
+    never on the port's path)."""
     import torch
 
+    from freeze_omni_tpu_torch.bin.k2_profile import k2_bound, sdpa_bf16
+    from freeze_omni_tpu_torch.bin.timing import cuda_time_ms, graph_time_ms
     from freeze_omni_tpu_torch.ops import attention as att
 
     B, T = qend.shape
-    dk, Hkv = kv.k.shape[-1], kv.k.shape[-2]
+    S, Hkv, dk = kv.k.shape[-3:]
     q = torch.randn((B, T, H, dk), generator=g, device="cuda").to(torch.bfloat16)
     args = (q, kv.k[0], kv.k_scale[0], kv.v[0], kv.v_scale[0], qend)
-    visible = qend.long().amax(dim=1)                       # slots each row reads
-    nbytes = int(visible.sum()) * Hkv * (2 * dk + 2 * 4) + 2 * q.numel() * 2 \
-        + qend.numel() * 4
-    b_ms, b_by = bound(nbytes, int(qend.long().sum()) * H * dk * 4)
+    b_ms, b_by = k2_bound(qend, H, Hkv, dk)
     return {"ms": cuda_time_ms(lambda: att.prefill_quant(*args)),
+            "device_ms": graph_time_ms(lambda: att.prefill_quant(*args)),
             "plain_ms": cuda_time_ms(lambda: att.prefill_quant_reference(*args),
                                      iters=10),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "visible": visible.tolist()}
+            "sdpa_bf16_ms": graph_time_ms(sdpa_bf16(*args)),
+            "splits": att.prefill_plan(B, T, H, Hkv, dk, S).splits,
+            "visible": qend.long().amax(dim=1).tolist()}
 
 
 def decode_time(fn, k, v, length, H, g):
@@ -1444,6 +1448,7 @@ def decode_time(fn, k, v, length, H, g):
     import torch
     import torch.nn.functional as F
 
+    from freeze_omni_tpu_torch.bin.timing import bound, cuda_time_ms
     from freeze_omni_tpu_torch.ops import attention as att
 
     B, S, Hkv, dk = k.shape
@@ -1499,9 +1504,12 @@ def phase_kernel_times(engine, tick, resp, errs, smi):
     k2_dec = k2_time(kv, (kv.length.long() + 1)[:, None].to(torch.int32),
                      cfg.num_heads, g)
     for label, r in (("T=29", k2), ("T=1", k2_dec)):
-        log(f"[time] K2 B={B} {label} S={S} visible slots/row {r['visible']}: "
-            f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms")
+        log(f"[time] K2 B={B} {label} S={S} ({smi}) visible slots/row "
+            f"{r['visible']}, {r['splits']} splits: kernel {r['ms']:.4f} ms "
+            f"eager, {r['device_ms']:.4f} ms device, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+            f"scaled_dot_product_attention on bf16 K/V {r['sdpa_bf16_ms']:.4f} ms "
+            f"device (not the same function, never on the path)")
 
     # K3/K4 on the speech decoder: the BatchedTTS pool's live layer-0 cache
     # (f32, S = 8*32 + 1 + max_tokens + 8) with the lengths its rows ended
@@ -1560,7 +1568,9 @@ def phase_kernel_times(engine, tick, resp, errs, smi):
         entry("prefill_quant (K2, one layer at B=8 T=29 S=1024)",
               "freeze_omni_tpu_torch/csrc/prefill_quant.cu",
               "freeze_omni_tpu/ops/attention.py:190", "prefill_quant", k2,
-              decode_step_T1=short(k2_dec)),
+              device_ms=k2["device_ms"], sdpa_bf16_ms=k2["sdpa_bf16_ms"],
+              decode_step_T1={**short(k2_dec), "device_ms": k2_dec["device_ms"],
+                              "sdpa_bf16_ms": k2_dec["sdpa_bf16_ms"]}),
         entry("decode_attention (K3, off the main path; timed at the "
               "BatchedTTS pool shape)",
               "freeze_omni_tpu_torch/csrc/decode_attention.cu",
@@ -1584,6 +1594,7 @@ def k5_crossover(layers, g):
     sum is the SMALL_N this table supports."""
     import torch
 
+    from freeze_omni_tpu_torch.bin.timing import cuda_time_ms
     from freeze_omni_tpu_torch.ops import quant_matmul as qm
 
     rows = []

@@ -22,6 +22,7 @@ import time
 import torch
 
 from ..ops import quant_matmul as qm
+from .timing import cuda_time_ms, kernel_times_ms
 
 SHAPES = (("q", 3584, 3584), ("k", 3584, 512), ("v", 3584, 512),
           ("o", 3584, 3584), ("gate", 3584, 18944), ("up", 3584, 18944),
@@ -38,37 +39,13 @@ def _library(w_q4, scale4):
     return lambda x: torch._weight_int4pack_mm(x, packed, GROUP, sz)
 
 
-def _eager_us(fn, iters=50):
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters * 1e3
+def _eager_us(fn):
+    return 1e3 * cuda_time_ms(fn)
 
 
-def _device_us(fn, reps=20):
+def _device_us(fn):
     """Device time per call of each kernel fn launches (name -> us)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        if t:
-            name = e.key.replace("void ", "").replace("(anonymous namespace)::", "")
-            name = name.split("<")[0].split("(")[0].split("::")[-1]
-            out[name] = out.get(name, 0.0) + t / reps
-    return out
+    return {k: 1e3 * v for k, v in kernel_times_ms(fn).items()}
 
 
 def _host_us(fn, n=3000):

@@ -25,6 +25,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".kernel_build"
 KERNELS = ("quant_matmul", "quant_matmul4", "prefill_quant", "decode_attention")
@@ -33,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.PyDLL] = {}
+_workspaces: Dict[tuple, tuple] = {}
 
 
 class KernelBuildFailure(RuntimeError):
@@ -113,3 +116,17 @@ def check(err: int, what: str) -> None:
     """Raise if a launch function returned a nonzero cudaError_t."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def workspace(dev: int, stream: int, n: int) -> int:
+    """Device pointer of n float32s of split partials (K5's small path, the
+    K1/K5 tile path, K2's split S): one buffer per (card, stream), grown on
+    demand and reused, since launches on one stream run in order. A
+    replaced buffer was allocated on this stream, so the caching allocator
+    hands it out again only in this stream's order."""
+    buf = _workspaces.get((dev, stream))
+    if buf is None or buf[0].numel() < n:
+        t = torch.empty(max(n, 1 << 20), dtype=torch.float32,
+                        device=torch.device("cuda", dev))
+        buf = _workspaces[(dev, stream)] = (t, t.data_ptr())
+    return buf[1]

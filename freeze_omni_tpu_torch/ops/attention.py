@@ -7,7 +7,10 @@ per session against the session's int8 cache. Query t of row b sees slots
 [0, qend[b, t]); qend = 0 marks an invalid query. The per-token, per-kv-head
 scales factor out of the dots: k_scale multiplies the scores and v_scale
 folds into the softmax weights. `prefill_quant` launches
-csrc/prefill_quant.cu.
+csrc/prefill_quant.cu: bf16 q takes its tensor-core kernel, which gives
+each block the valid query rows of one (row, kv head) and splits the visible
+slots over `prefill_plan(...).splits` blocks (a second pass merges them);
+f32 q takes its SIMT kernel.
 
 K3 and K4, decode attention over a float cache (decode_attention,
 decode_attention_blocked and the dispatcher gqa_decode): one query token per
@@ -32,7 +35,9 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -68,10 +73,57 @@ def prefill_quant_reference(q, k_q, k_scale, v_q, v_scale, qend):
 def _lib():
     fn = _build.load("prefill_quant").prefill_quant_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + \
-            [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + \
+            [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+# K2's bf16 kernel (csrc/prefill_quant.cu): tiles of PREFILL_TILE cache
+# slots; blocks of 1, 2 or 4 warps, 16 compacted query rows a warp; at most
+# PREFILL_MAX_SPLITS blocks a (b, kv head)
+PREFILL_TILE = 64
+PREFILL_MAX_SPLITS = 32
+_SMS = 132
+# the split partials of one call, at most: a partial of its rows of dk =
+# 128 (and m, l) for each of at most 2 x 132 blocks of 64 rows or 4 x 132
+# of 32, 8.8 MB
+PREFILL_WORKSPACE_BYTES = 2 * _SMS * 64 * (128 + 2) * 4
+
+
+class PrefillPlan(NamedTuple):
+    rows: int              # compacted query rows a row tile: 16, 32 or 64
+    splits: int            # blocks a (b, kv head)
+    tile_splits: int       # the most splits a row tile takes (1: no merge)
+    workspace_floats: int  # the split partials (0 for tile_splits 1)
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_plan(B: int, T: int, H: int, Hkv: int, dk: int, S: int) -> PrefillPlan:
+    """Launch plan of K2's bf16 kernel, from the shapes alone (qend stays on
+    the card). A row tile holds up to `rows` of the valid query rows of one
+    (row b, kv head): 16, 32 or 64 as T * rep needs. Each (b, kv head) gets
+    `splits` blocks, one wave of the H100's 132 SMs: two blocks an SM of
+    4 warps (222 registers a thread), four of 1 or 2 warps (the 56.8 KB
+    ring), within S's 64-slot tiles and PREFILL_MAX_SPLITS. The kernel
+    deals the (row tile, split) units out over them once it knows the valid
+    rows, each row tile taking min(tile_splits, splits // tiles): a tick's
+    or a text step's one row tile takes every split. tile_splits is 1 where
+    the T * rep rows, all valid, fill at least half the blocks with row
+    tiles (the role prefill: ten row tiles over 8 blocks), so that shape
+    never launches the merge nor reserves the workspace; else it is
+    `splits`. The workspace holds a partial of `rows` rows for each block,
+    within PREFILL_WORKSPACE_BYTES."""
+    rep = H // Hkv
+    M = T * rep
+    rows = 16 if M <= 16 else 32 if M <= 32 else 64
+    bh = B * Hkv
+    resident = 2 if rows == 64 else 4   # blocks an SM: registers, or the ring
+    splits = max(1, min(PREFILL_MAX_SPLITS, -(-S // PREFILL_TILE),
+                        resident * _SMS // bh))
+    tile_splits = 1 if splits // -(-M // rows) <= 1 else splits
+    return PrefillPlan(rows, splits, tile_splits,
+                       bh * splits * rows * (dk + 2) if tile_splits > 1 else 0)
 
 
 def _check_cuda_args(q, k_q, k_scale, v_q, v_scale, qend) -> None:
@@ -108,8 +160,10 @@ def _check_cuda_args(q, k_q, k_scale, v_q, v_scale, qend) -> None:
     if dk not in _HEAD_DIMS or H % Hkv:
         raise ValueError(f"prefill_quant: head_dim {dk} not in {_HEAD_DIMS} "
                          f"or H={H} not a multiple of Hkv={Hkv}")
-    if k_q.data_ptr() % 4 or v_q.data_ptr() % 4:
-        raise ValueError("prefill_quant: k_q/v_q must be 4-byte aligned")
+    align = 16 if q.dtype == torch.bfloat16 else 4
+    for name, t in (("q", q), ("k_q", k_q), ("v_q", v_q)):
+        if t.data_ptr() % align:
+            raise ValueError(f"prefill_quant: {name} must be {align}-byte aligned")
 
 
 def prefill_quant(q, k_q, k_scale, v_q, v_scale, qend):
@@ -125,11 +179,19 @@ def prefill_quant(q, k_q, k_scale, v_q, v_scale, qend):
     if B == 0 or T == 0:
         return out
     fn = _lib()
+    warps, splits, tile_splits, ws = 0, 1, 1, None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        if q.dtype == torch.bfloat16:
+            plan = prefill_plan(B, T, H, Hkv, dk, S)
+            warps, splits, tile_splits = plan.rows // 16, plan.splits, plan.tile_splits
+            if tile_splits > 1:
+                ws = _build.workspace(q.get_device(), stream,
+                                      plan.workspace_floats)
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k_q.data_ptr(),
                  k_scale.data_ptr(), v_q.data_ptr(), v_scale.data_ptr(),
-                 qend.data_ptr(), out.data_ptr(), B, T, H, Hkv, S, dk, stream)
+                 qend.data_ptr(), out.data_ptr(), ws, B, T, H, Hkv, S, dk,
+                 warps, splits, tile_splits, stream)
     _build.check(err, "prefill_quant")
     prefill_quant.launches += 1
     return out

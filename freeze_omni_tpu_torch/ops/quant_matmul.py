@@ -114,7 +114,7 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
         return y
     stream = torch._C._cuda_getCurrentRawStream(dev)
     nt, wr, splits, kps = tile_plan(N, K, O)
-    ws = _workspace(dev, stream, splits * N * O) \
+    ws = _build.workspace(dev, stream, splits * N * O) \
         if splits > 1 and x.dtype == torch.bfloat16 else None
     err = _lib("quant_matmul", 7)(_DTYPE_CODE[x.dtype], x.data_ptr(),
                                   w_q.data_ptr(), scale.data_ptr(), y.data_ptr(),
@@ -281,7 +281,7 @@ def quant_matmul4(x: torch.Tensor, w_q4: torch.Tensor, scale4: torch.Tensor,
         warps, splits = small_plan(N, K, O, group)
         err = _small_lib()(_DTYPE_CODE[x.dtype], x.data_ptr(), w_q4.data_ptr(),
                            scale4.data_ptr(), y.data_ptr(),
-                           _workspace(dev, stream, splits * N * O), N, K, O,
+                           _build.workspace(dev, stream, splits * N * O), N, K, O,
                            group, warps, splits, stream)
     else:
         bf16 = x.dtype == torch.bfloat16
@@ -289,7 +289,7 @@ def quant_matmul4(x: torch.Tensor, w_q4: torch.Tensor, scale4: torch.Tensor,
             raise ValueError(f"quant_matmul4: the tile path takes bf16 groups "
                              f"of whole 16-row K steps, got group {group}")
         nt, wr, splits, kps = tile_plan(N, K, O, group)
-        ws = _workspace(dev, stream, splits * N * O) \
+        ws = _build.workspace(dev, stream, splits * N * O) \
             if splits > 1 and bf16 else None
         err = _lib("quant_matmul4", 8)(
             _DTYPE_CODE[x.dtype], x.data_ptr(), w_q4.data_ptr(),
@@ -302,7 +302,6 @@ def quant_matmul4(x: torch.Tensor, w_q4: torch.Tensor, scale4: torch.Tensor,
 
 
 _small_fn = None
-_workspaces: dict = {}
 
 
 def _small_lib():
@@ -314,21 +313,6 @@ def _small_lib():
         fn.restype = ctypes.c_int
         _small_fn = fn
     return _small_fn
-
-
-def _workspace(dev: int, stream: int, n: int) -> int:
-    """Device pointer of the split partials of K5's small path and of the
-    tile path (n floats):
-    one buffer per (card, stream), grown on demand and reused, since
-    launches on one stream run in order. A replaced buffer was allocated on
-    this stream, so the caching allocator hands it out again only in this
-    stream's order."""
-    buf = _workspaces.get((dev, stream))
-    if buf is None or buf[0].numel() < n:
-        t = torch.empty(max(n, 1 << 20), dtype=torch.float32,
-                        device=torch.device("cuda", dev))
-        buf = _workspaces[(dev, stream)] = (t, t.data_ptr())
-    return buf[1]
 
 
 quant_matmul4.launches = 0

@@ -292,6 +292,88 @@ def test_prefill_quant_matches_plain(cuda, dtype, B, T, H, Hkv, dk, S):
                                rtol=tol, atol=tol)
 
 
+TICK_VALID = [8, 9, 10, 11, 25, 26, 27, 28]   # a dual tick's valid tokens of 29
+
+
+def _tick_qend(lengths, T=29):
+    """A regular tick's qend: the valid tokens of each row see the row's
+    cache and the valid tokens before them; the others are masked (0)."""
+    qend = np.zeros((len(lengths), T), np.int64)
+    for rank, t in enumerate(TICK_VALID):
+        qend[:, t] = np.asarray(lengths) + rank + 1
+    return qend
+
+
+def _k2_case(case, rng):
+    """(B, T, H, Hkv, dk, S, qend) of one bf16 case of K2."""
+    if case == "text_step":      # T = 1, qend = length + 1, one row at S-1
+        S = 1024
+        lengths = rng.randint(1, S - 2, size=8)
+        lengths[0] = S - 2
+        return 8, 1, 28, 4, 128, S, (lengths + 1)[:, None]
+    if case == "tick_mask":      # 8 of 29 valid, one row with no valid query
+        S = 1024
+        qend = _tick_qend(rng.randint(S // 4, S - 40, size=8))
+        qend[3] = 0
+        return 8, 29, 28, 4, 128, S, qend
+    if case == "role_prefill":   # T = 89 at B = 2: every token valid
+        return 2, 89, 28, 4, 128, 1024, np.stack([np.arange(1, 90),
+                                                  np.arange(301, 390)])
+    if case == "role_prefill_b8":   # B = 8: one split a row tile, which
+        # writes the output itself (10 row tiles over the blocks)
+        assert att.prefill_plan(8, 89, 28, 4, 128, 1024).tile_splits == 1
+        return 8, 89, 28, 4, 128, 1024, \
+            np.arange(1, 90)[None, :] + 100 * np.arange(8)[:, None]
+    if case == "qend_S_minus_1":  # the last valid token sees all but slot S-1
+        S = 2048
+        return 4, 29, 28, 4, 128, S, _tick_qend([S - 9, 100, 1500, 7])
+    if case == "split_boundary":  # qends at the kernel's split edges +- 1
+        B, T, S = 4, 29, 1024
+        qmax = 700   # one row tile: it takes every split
+        # the kernel's cut: ceil(qmax / 64) tiles over `used` splits, split
+        # sp starting at tile sp * tiles // used
+        tiles = -(-qmax // 64)
+        used = min(att.prefill_plan(B, T, 28, 4, 128, S).tile_splits, tiles)
+        e1, e2 = (sp * tiles // used * 64 for sp in (1, 2))
+        assert used > 2 and e2 < qmax - 1
+        qend = np.zeros((B, T), np.int64)
+        qend[:, TICK_VALID] = [e1 - 1, e1, e1 + 1, e2 - 1, e2, e2 + 1,
+                               qmax - 1, qmax]
+        return B, T, 28, 4, 128, S, qend
+    assert case == "tiny_dk64"   # tiny widths, S not a multiple of the tile
+    S = 100
+    qend = rng.randint(0, S, size=(3, 6))
+    qend[0, 0] = 0
+    qend[1] = 0
+    return 3, 6, 8, 2, 64, S, qend
+
+
+@pytest.mark.parametrize("case", ["text_step", "tick_mask", "role_prefill",
+                                  "role_prefill_b8", "qend_S_minus_1",
+                                  "split_boundary", "tiny_dk64"])
+def test_prefill_quant_bf16_cases(cuda, case):
+    """The tensor-core kernel at the main paths' qend patterns and at its
+    own edges: NaN/Inf in slot S-1, valid rows within 2e-2 of the plain
+    version, masked rows zero, two calls bit-identical, one launch a call."""
+    rng = np.random.RandomState(len(case))
+    B, T, H, Hkv, dk, S, qend = _k2_case(case, rng)
+    q, k_q, k_s, v_q, v_s, _ = _pq_inputs(B, T, H, Hkv, dk, S, torch.bfloat16,
+                                          cuda, seed=len(case))
+    qend = torch.from_numpy(np.asarray(qend, np.int32)).to(cuda)
+    before = att.prefill_quant.launches
+    out = att.prefill_quant(q, k_q, k_s, v_q, v_s, qend)
+    out2 = att.prefill_quant(q, k_q, k_s, v_q, v_s, qend)
+    torch.cuda.synchronize()
+    assert att.prefill_quant.launches == before + 2
+    assert torch.equal(out, out2)
+    ref = att.prefill_quant_reference(q, k_q, k_s, v_q, v_s, qend)
+    valid = qend > 0
+    assert torch.isfinite(out.float()).all()
+    assert (out[~valid] == 0).all()
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(),
+                               rtol=2e-2, atol=2e-2)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x, w_q, scale = _qm_inputs(4, 64, 64, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
