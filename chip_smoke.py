@@ -37,9 +37,14 @@ raises and the script exits nonzero without printing a result. Phases:
    Hkv=4, dk=128, S=1024 in bf16 (2e-2: one bf16 rounding of the output)
    and the speech decoder's shape B=8, H=Hkv=14, dk=64, S in {1265, 2048}
    in f32 with TF32 off (1e-4: f32 sums in another order), with lengths
-   0, 1, 255, 256, 257 and S-1 among the rows and NaN in slot S-1 and in
-   every slot past a row's length. Valid rows are compared; masked rows
-   (qend = 0, length = 0) must be finite;
+   0, 1, 255, 256, 257 and S-1 among the rows, then K4's plan edges:
+   first_response's 73..123 visible slots under one split and under 8
+   splits (narrow heads: blocks past a row's tiles exit), the 32-slot tile
+   edges under 4 splits, and the two mixed dtype pairs (bf16 q on an f32
+   cache, f32 q on a bf16 cache); NaN in slot S-1 and in every slot past a
+   row's length. Valid rows are compared; masked rows (qend = 0, length =
+   0) must be zero; two calls bit-identical, one launch a call, and K4
+   replayed from a CUDA graph equal to an eager call;
 4. tick parity at full width and reduced depth: the flagship widths with 2
    LLM layers, int8 KV, and int8 weights, then int4 weights (as the server
    draws them); for each, the same weights and fbank windows
@@ -92,7 +97,12 @@ raises and the script exits nonzero without printing a result. Phases:
    the live layer-0 cache, eager and as device time, beside
    scaled_dot_product_attention on that cache dequantized to bf16 before
    the timed window with the qend mask (sdpa_bf16_ms: a reference ceiling,
-   not the same function, never on the path); K5 is timed after phase 9
+   not the same function, never on the path); K3 and K4 on the live pool's
+   layer-0 cache and at first_response's shape, eager, as device time and
+   as device time with the cache cold in L2 (bin/k4_profile.time_decode),
+   beside one scaled_dot_product_attention call with the length mask, and
+   after phase 9 on its pool's layer-0 cache at the lengths of its deepest
+   step; K5 is timed after phase 9
    on the int4 server's layer-0 projections, at N=232 and at N in {1, 4, 8,
    SMALL_N} (text decode), beside torch._weight_int4pack_mm on the same
    weights (each also as device time: calls captured in a CUDA graph and
@@ -492,23 +502,68 @@ def k2_inputs(B, T, H, Hkv, dk, S, seed, qend_kind="ragged"):
     return q, k_q, k_s, v_q, v_s, qend.to(torch.int32)
 
 
-def decode_inputs(B, H, Hkv, dk, S, dtype, seed):
+def decode_inputs(B, H, Hkv, dk, S, q_dtype, kv_dtype, seed, lengths=None):
     """K3/K4 inputs: lengths 0, 1, 255, 256, 257 and S-1 among the rows, the
-    rest random; NaN in slot S-1 and in every slot past a row's length."""
+    rest random (or `lengths`); NaN in slot S-1 and in every slot past a
+    row's length."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
-    q = torch.randn((B, H, dk), generator=g, device=dev).to(dtype)
-    k = torch.randn((B, S, Hkv, dk), generator=g, device=dev).to(dtype)
-    v = torch.randn((B, S, Hkv, dk), generator=g, device=dev).to(dtype)
-    special = [0, 1, 255, 256, 257, S - 1]
+    q = torch.randn((B, H, dk), generator=g, device=dev).to(q_dtype)
+    k = torch.randn((B, S, Hkv, dk), generator=g, device=dev).to(kv_dtype)
+    v = torch.randn((B, S, Hkv, dk), generator=g, device=dev).to(kv_dtype)
+    special = [0, 1, 255, 256, 257, S - 1] if lengths is None else list(lengths)
     rest = torch.randint(1, S - 1, (B - len(special),), generator=g, device=dev)
     length = torch.cat([torch.tensor(special, device=dev), rest]).to(torch.int32)
     masked = torch.arange(S, device=dev)[None, :] >= length[:, None].long()
     k[masked] = float("nan")
     v[masked] = float("nan")
+    k[:, S - 1] = float("nan")
+    v[:, S - 1] = float("nan")
     return q, k, v, length
+
+
+FIRST_RESPONSE_LENGTHS = [73, 80, 87, 94, 102, 109, 116, 123]
+# K3/K4's phase-3 cases: (label, B, H, Hkv, dk, S, q dtype, cache dtype,
+# lengths or None for 0, 1, 255, 256, 257, S-1 and random)
+DECODE_CASES = (
+    ("LLM text decode", 8, 28, 4, 128, 1024, "bfloat16", "bfloat16", None),
+    ("BatchedTTS pool", 8, 14, 14, 64, 1265, "float32", "float32", None),
+    ("first_response", 8, 14, 14, 64, 2048, "float32", "float32", None),
+    ("first_response lengths", 8, 14, 14, 64, 2048, "float32", "float32",
+     FIRST_RESPONSE_LENGTHS),
+    ("short rows, 8 splits", 8, 2, 2, 64, 2048, "float32", "float32",
+     FIRST_RESPONSE_LENGTHS),
+    ("tile edges, 4 splits", 8, 4, 4, 64, 465, "float32", "float32",
+     [0, 1, 31, 32, 33, 64, 309, 464]),
+    ("bf16 q, f32 cache", 4, 28, 4, 128, 700, "bfloat16", "float32", [699, 0, 97, 1]),
+    ("f32 q, bf16 cache", 4, 14, 14, 64, 700, "float32", "bfloat16", [699, 0, 97, 1]),
+)
+
+
+def graph_equals_eager(fn, args):
+    """fn(*args) captured in a CUDA graph (after warm-up calls on the
+    capture stream) and replayed gives the eager call's bits."""
+    import torch
+
+    from freeze_omni_tpu_torch.ops import _build
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(out, fn(*args))
+    del graph
+    _build.release_workspace(torch.cuda.current_device(), stream.cuda_stream)
+    return same
 
 
 def phase_kernel_parity():
@@ -608,28 +663,42 @@ def phase_kernel_parity():
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version ({label})")
     dec_err = {"decode_attention": 0.0, "decode_attention_blocked": 0.0}
-    for (B, H, Hkv, dk, S, dtype, dtol) in (
-            (8, 28, 4, 128, 1024, torch.bfloat16, 2e-2),   # LLM text decode
-            (8, 14, 14, 64, 1265, torch.float32, 1e-4),    # BatchedTTS pool
-            (8, 14, 14, 64, 2048, torch.float32, 1e-4)):   # first_response
-        q, k, v, length = decode_inputs(B, H, Hkv, dk, S, dtype, seed=S + dk)
+    for (label, B, H, Hkv, dk, S, q_dt, kv_dt, lengths) in DECODE_CASES:
+        q_dtype, kv_dtype = getattr(torch, q_dt), getattr(torch, kv_dt)
+        dtol = 2e-2 if q_dtype == torch.bfloat16 else 1e-4
+        q, k, v, length = decode_inputs(B, H, Hkv, dk, S, q_dtype, kv_dtype,
+                                        seed=S + dk, lengths=lengths)
         ref = att.decode_attention_reference(q, k, v, length)
         valid = length > 0
+        splits = att.decode_plan(B, H, Hkv, dk, S).splits
         for name in dec_err:
-            out = getattr(att, name)(q, k, v, length)
+            fn = getattr(att, name)
+            before = fn.launches
+            out = fn(q, k, v, length)
+            out2 = fn(q, k, v, length)
             torch.cuda.synchronize()
+            if fn.launches - before != 2:
+                raise AssertionError(f"{name} ({label}): launch count rose by "
+                                     f"{fn.launches - before}, not 2")
+            if not torch.equal(out, out2):
+                raise AssertionError(f"{name} gave two results for one input ({label})")
             if not torch.isfinite(out.float()).all() or (out[~valid] != 0).any():
                 raise AssertionError(f"{name} wrote non-finite values or a "
-                                     f"nonzero masked row at S={S}")
+                                     f"nonzero masked row ({label})")
             err, ok = max_violation(out[valid], ref[valid], dtol)
             dec_err[name] = max(dec_err[name], err)
-            log(f"[parity] {name} B={B} H={H} Hkv={Hkv} dk={dk} S={S} "
-                f"{str(dtype).split('.')[-1]}: max_abs_err {err:.3e} (tol {dtol}) "
-                f"on {int(valid.sum())} valid rows, lengths {length.tolist()}; "
-                f"length=0 rows finite")
+            log(f"[parity] {name} {label} B={B} H={H} Hkv={Hkv} dk={dk} S={S} "
+                f"{q_dt} q, {kv_dt} cache, K4 splits {splits}: max_abs_err "
+                f"{err:.3e} (tol {dtol}) on {int(valid.sum())} valid rows, "
+                f"lengths {length.tolist()}; masked rows zero; two calls "
+                f"bit-identical")
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version "
-                                     f"at S={S}")
+                                     f"({label})")
+        if lengths is not None and not graph_equals_eager(
+                att.decode_attention_blocked, (q, k, v, length)):
+            raise AssertionError(f"K4 replayed from a CUDA graph differs from "
+                                 f"an eager call ({label})")
     return {"quant_matmul": k1_err, "quant_matmul4": max(k5_err.values()),
             "quant_matmul4_paths": k5_err, "prefill_quant": k2_err, **dec_err}
 
@@ -1128,6 +1197,7 @@ def phase_service(smi, int8_llm_bytes):
     zero_launches()
     steps = []   # per step: kind, ms, front, vad, tick, launches
     trigger, responders, pos = None, [], 0
+    deepest = []   # the pool rows' lengths after its deepest step
     while len(steps) < 400:
         k = len(steps)
         talking = trigger is None
@@ -1155,6 +1225,9 @@ def phase_service(smi, int8_llm_bytes):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         after = read_launches()
+        lengths = pool.state.cache.kv.length.tolist()
+        if sum(lengths) > sum(deepest):
+            deepest = lengths
         if fire:
             svc.resp_threshold = 2.0
             trigger = k
@@ -1252,8 +1325,10 @@ def phase_service(smi, int8_llm_bytes):
         f"({int8_llm_bytes} B); peak device memory {peak / 2**30:.2f} GiB")
     log(f"[serve] launches {launches}; per tick-only step {per_tick}; per "
         f"speaking session {per_resp}")
+    log(f"[serve] the pool's rows ({pool.state.cache.kv.k.shape[2]} slots) after "
+        f"its deepest step: {deepest}")
     return {"server": server, "launches": launches, "per_tick": per_tick,
-            "per_response": per_resp}
+            "per_response": per_resp, "pool": pool, "pool_lengths": deepest}
 
 
 def dense_bf16_ms(x, w):
@@ -1442,31 +1517,36 @@ def k2_time(kv, qend, H, g):
 
 
 def decode_time(fn, k, v, length, H, g):
-    """A decode-attention kernel on cache k/v [B, S, Hkv, dk] with `length`,
-    beside the plain version, one scaled_dot_product_attention call with a
-    length mask, and the bound."""
+    """A decode-attention kernel on cache k/v [B, S, Hkv, dk] with `length`:
+    eager, device and cold-L2 device time (bin/k4_profile.time_decode), the
+    bound (k4_profile.decode_bound), the plain version, and one
+    scaled_dot_product_attention call with the length mask
+    (k4_profile.sdpa_masked: the same function, timed only)."""
     import torch
-    import torch.nn.functional as F
 
-    from freeze_omni_tpu_torch.bin.timing import bound, cuda_time_ms
+    from freeze_omni_tpu_torch.bin.k4_profile import (decode_bound, sdpa_masked,
+                                                      time_decode)
+    from freeze_omni_tpu_torch.bin.timing import cuda_time_ms, graph_time_ms
     from freeze_omni_tpu_torch.ops import attention as att
 
     B, S, Hkv, dk = k.shape
     q = torch.randn((B, H, dk), generator=g, device="cuda").to(k.dtype)
-    mask = (torch.arange(S, device="cuda")[None, :] < length.long()[:, None])
-    qs, ks, vs = q[:, :, None, :], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-    am = mask[:, None, None, :]
-    elem = k.element_size()
-    n_vis = int(length.long().sum())
-    nbytes = n_vis * Hkv * dk * 2 * elem + 2 * q.numel() * q.element_size() \
-        + length.numel() * 4
-    b_ms, b_by = bound(nbytes, 4 * n_vis * H * dk)
-    return {"ms": cuda_time_ms(lambda: fn(q, k, v, length)),
+    t = time_decode(fn, q, k, v, length)
+    b_ms, b_by = decode_bound(q, k, length)
+    sdpa = sdpa_masked(q, k, v, length)
+    return {"ms": t["eager_ms"], "device_ms": t["device_ms"], "cold_ms": t["cold_ms"],
             "plain_ms": cuda_time_ms(
                 lambda: att.decode_attention_reference(q, k, v, length), iters=10),
-            "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=am, enable_gqa=True)),
+            "library_ms": cuda_time_ms(sdpa), "library_device_ms": graph_time_ms(sdpa),
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def log_decode_time(name, label, r, smi):
+    log(f"[time] {name} {label} shape ({smi}): kernel {r['ms']:.4f} ms eager, "
+        f"{r['device_ms']:.4f} ms device, {r['cold_ms']:.4f} ms device with the "
+        f"cache cold in L2, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), plain "
+        f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+        f"{r['library_ms']:.4f} ms eager, {r['library_device_ms']:.4f} ms device")
 
 
 def phase_kernel_times(engine, tick, resp, errs, smi):
@@ -1530,13 +1610,11 @@ def phase_kernel_times(engine, tick, resp, errs, smi):
                                                   dcfg.num_heads, g)
         for label, r in (("pool", dec[name]), ("first_response",
                                                dec[name]["first_response"])):
-            log(f"[time] {name} {label} shape: kernel {r['ms']:.4f} ms, bound "
-                f"{r['bound_ms']:.5f} ms ({r['bound_by']}), plain "
-                f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention "
-                f"{r['library_ms']:.4f} ms")
+            log_decode_time(name, label, r, smi)
     log(f"[time] K3/K4 pool shape B={pkv.k.shape[1]} S={pkv.k.shape[2]} "
         f"H={dcfg.num_heads} dk={dcfg.head_dim} lengths {pool_len.tolist()}; "
-        f"first_response shape S={fr_S} lengths {fr_len.tolist()}")
+        f"first_response shape S={fr_S} lengths {fr_len.tolist()}; K4 splits "
+        f"{att.decode_plan(pkv.k.shape[1], dcfg.num_heads, pkv.k.shape[3], dcfg.head_dim, pkv.k.shape[2]).splits}")
 
     launches = {k: engine_launches[k] + resp["launches"][k] for k in engine_launches}
     n_resp = resp["n_responses"]
@@ -1555,7 +1633,13 @@ def phase_kernel_times(engine, tick, resp, errs, smi):
 
     def short(t):
         return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")}
+                                  "library_ms", "device_ms", "cold_ms",
+                                  "library_device_ms") if k in t}
+
+    def short_extra(t):
+        return {"device_ms": t["device_ms"], "cold_ms": t["cold_ms"],
+                "library_device_ms": t["library_device_ms"],
+                "first_response_shape": short(t["first_response"])}
 
     return [
         entry("quant_matmul (K1, one layer's 7 projections at N=232)",
@@ -1576,14 +1660,13 @@ def phase_kernel_times(engine, tick, resp, errs, smi):
               "freeze_omni_tpu_torch/csrc/decode_attention.cu",
               "freeze_omni_tpu/ops/attention.py:82", "decode_attention",
               dec["decode_attention"], on_main_path=False,
-              first_response_shape=short(dec["decode_attention"]["first_response"])),
+              **short_extra(dec["decode_attention"])),
         entry("decode_attention_blocked (K4, one decoder layer at the "
               "BatchedTTS pool shape)",
               "freeze_omni_tpu_torch/csrc/decode_attention.cu",
               "freeze_omni_tpu/ops/attention.py:369", "decode_attention_blocked",
               dec["decode_attention_blocked"],
-              first_response_shape=short(
-                  dec["decode_attention_blocked"]["first_response"])),
+              **short_extra(dec["decode_attention_blocked"])),
     ]
 
 
@@ -1623,6 +1706,29 @@ def k5_crossover(layers, g):
 
 
 CROSSOVER_NS = (1, 2, 4, 8, 12, 16, 24, 32)
+
+
+def phase_k4_service_times(serve, kernels, smi):
+    """K3 and K4 on the int4 service's pool (phase 9): its layer-0 cache at
+    the lengths of its deepest step."""
+    import torch
+
+    from freeze_omni_tpu_torch.ops import attention as att
+
+    pool = serve["pool"]
+    kv = pool.state.cache.kv
+    length = torch.tensor(serve["pool_lengths"], dtype=torch.int32, device="cuda")
+    H = pool._dcfg.num_heads
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for entry in kernels:
+        name = entry["name"].split(" ")[0]
+        if name in ("decode_attention", "decode_attention_blocked"):
+            r = decode_time(getattr(att, name), kv.k[0], kv.v[0], length, H, g)
+            log_decode_time(name, f"service pool B={kv.k.shape[1]} "
+                            f"S={kv.k.shape[2]} lengths {length.tolist()}", r, smi)
+            entry["service_pool_shape"] = {k: r[k] for k in (
+                "ms", "device_ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")}
 
 
 def phase_k5_times(serve, errs, smi):
@@ -1715,6 +1821,7 @@ def main() -> int:
                                     "decode_attention", "decode_attention_blocked")):
         entry["launches_int4_service"] = serve["launches"][key]
         entry["launches"] += serve["launches"][key]
+    phase_k4_service_times(serve, kernels, smi)
     kernels.insert(1, phase_k5_times(serve, errs, smi))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,10 +1,12 @@
 """Timers and the roofline bound of the card's measurement scripts
-(chip_smoke.py, bin/k2_profile.py, bin/k5_profile.py). The timers need a
-CUDA card."""
+(chip_smoke.py, bin/k2_profile.py, bin/k4_profile.py, bin/k5_profile.py).
+The timers need a CUDA card."""
 
 from __future__ import annotations
 
 import torch
+
+from freeze_omni_tpu_torch.ops import _build
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
@@ -60,6 +62,7 @@ def graph_time_ms(fn, calls=20, replays=10):
     end.record()
     torch.cuda.synchronize()
     del graph
+    _build.release_workspace(torch.cuda.current_device(), stream.cuda_stream)
     return start.elapsed_time(end) / (replays * calls)
 
 

@@ -15,6 +15,7 @@ a failed build raises; nothing falls back to the plain versions.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -118,6 +119,15 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
+def on_device(dev: int):
+    """A context in which card `dev` is the current device, the launch
+    functions' target: `torch.cuda.device(dev)` only where another card is
+    current, since entering it costs the host microseconds a call."""
+    if torch.cuda.current_device() == dev:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def workspace(dev: int, stream: int, n: int) -> int:
     """Device pointer of n float32s of split partials (K5's small path, the
     K1/K5 tile path, K2's split S): one buffer per (card, stream), grown on
@@ -130,3 +140,10 @@ def workspace(dev: int, stream: int, n: int) -> int:
                         device=torch.device("cuda", dev))
         buf = _workspaces[(dev, stream)] = (t, t.data_ptr())
     return buf[1]
+
+
+def release_workspace(dev: int, stream: int) -> None:
+    """Give back the workspace of a stream that launches no more kernels
+    (a CUDA-graph capture stream, once its graphs are gone), which would
+    otherwise stay held for as long as the process runs."""
+    _workspaces.pop((dev, stream), None)

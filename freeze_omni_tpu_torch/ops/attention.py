@@ -15,11 +15,13 @@ f32 q takes its SIMT kernel.
 K3 and K4, decode attention over a float cache (decode_attention,
 decode_attention_blocked and the dispatcher gqa_decode): one query token per
 row, q [B, H, dk] against k/v [B, S, Hkv, dk]; row b sees slots
-[0, length[b]) with GQA. Both launch csrc/decode_attention.cu: K4 splits
-each row into blocks of `block` slots (flash-decoding, a second pass merges
-the splits), K3 walks the row in one split. `gqa_decode`, which the T = 1
-float-cache branch of models/qwen2.forward calls (the text decode of a
-float-KV LLM and every codec-token step of the speech decoder), launches K4.
+[0, length[b]) with GQA. Both launch csrc/decode_attention.cu: K4 gives
+each (row, kv head) `decode_plan(...).splits` blocks, which cut the row's
+visible slots among themselves on the card (flash-decoding; a second pass
+merges the splits), K3 the same kernel with one block a (row, kv head).
+`gqa_decode`, which the T = 1 float-cache branch of models/qwen2.forward
+calls (the text decode of a float-KV LLM and every codec-token step of the
+speech decoder), launches K4.
 
 Each wrapper launches its hand-written Hopper kernel for CUDA tensors and
 runs the plain PyTorch version of the same f32 arithmetic
@@ -204,7 +206,7 @@ prefill_quant.launches = 0
 # K3 / K4: decode attention over a float cache
 # ---------------------------------------------------------------------------
 
-_MAX_REP_DK = 1024   # rep * dk a kernel block holds (8 accumulators a thread)
+_MAX_REP_DK = 1024   # rep * dk a kernel block holds (32 accumulators a lane)
 
 
 def decode_attention_reference(q, k_cache, v_cache, length):
@@ -227,11 +229,45 @@ def decode_attention_reference(q, k_cache, v_cache, length):
     return out.reshape(B, H, dk).to(q.dtype)
 
 
+# K3/K4's kernel (csrc/decode_attention.cu): blocks of 4 warps, each warp
+# taking 8 slots of every DECODE_TILE-slot tile through its own ring of
+# copies; at most DECODE_MAX_SPLITS blocks a (row, kv head), a merge lane each
+DECODE_TILE = 32
+DECODE_MAX_SPLITS = 32
+
+
+class DecodePlan(NamedTuple):
+    tile: int              # slots of the unit the kernel cuts rows into
+    splits: int            # blocks a (row, kv head); 1: no merge pass
+    workspace_floats: int  # the split partials (0 for one split)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(B: int, H: int, Hkv: int, dk: int, S: int) -> DecodePlan:
+    """Launch plan of K4 from the shapes alone (length stays on the card):
+    `splits` blocks a (row, kv head), as many as put about one block on
+    each of the H100's 132 SMs (B * Hkv * splits nearest 132), within S's
+    DECODE_TILE-slot tiles and DECODE_MAX_SPLITS. One block an SM streams
+    its share at about the card's rate, since each warp keeps its own ring
+    of copies in flight; more splits only add partials and a merge pass,
+    which costs more than they gain (bin/k4_profile.py). The kernel cuts
+    each row's visible slots into min(splits, visible tiles) runs of whole
+    tiles on the card; blocks past them exit at once. With one split (the
+    speech decoder's B = 8 rows of 14 kv heads) there is no merge and no
+    workspace; otherwise the workspace holds each block's partial: rep rows
+    of dk accumulators, a max and a sum."""
+    bh = B * Hkv
+    splits = max(1, min(DECODE_MAX_SPLITS, -(-S // DECODE_TILE),
+                        (_SMS + bh // 2) // bh))
+    return DecodePlan(DECODE_TILE, splits,
+                      B * H * splits * (dk + 2) if splits > 1 else 0)
+
+
 def _decode_lib():
     fn = _build.load("decode_attention").decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + \
-            [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + \
+            [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -273,39 +309,41 @@ def _check_decode_args(what, q, k_cache, v_cache, length) -> None:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
 
 
-def _decode_launch(what, q, k_cache, v_cache, length, split):
+def _decode_launch(what, q, k_cache, v_cache, length, single: bool):
+    """Launch K3 (`single`: one split, no merge) or K4 (decode_plan's
+    splits; the partials in the per-(card, stream) workspace)."""
     _check_decode_args(what, q, k_cache, v_cache, length)
     B, H, dk = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
     if B == 0 or H == 0:
         return out
-    split = max(1, min(int(split), S))
-    nsplit = -(-S // split)
-    n_part = B * Hkv * nsplit * (H // Hkv) if nsplit > 1 else 0
-    part_ml = torch.empty((2, n_part), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((n_part * dk,), dtype=torch.float32, device=q.device)
+    splits, ws_floats = 1, 0
+    if not single:
+        _, splits, ws_floats = decode_plan(B, H, Hkv, dk, S)
     fn = _decode_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    dev = q.get_device()
+    with _build.on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = _build.workspace(dev, stream, ws_floats) if splits > 1 else None
         err = fn(_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
                  q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 length.data_ptr(), out.data_ptr(), part_ml[0].data_ptr(),
-                 part_ml[1].data_ptr(), part_acc.data_ptr(), B, H, Hkv, S, dk,
-                 split, nsplit, stream)
+                 length.data_ptr(), out.data_ptr(), ws, B, H, Hkv, S, dk,
+                 splits, stream)
     _build.check(err, what)
     return out
 
 
 def decode_attention(q, k_cache, v_cache, length):
     """K3: same contract as decode_attention_reference; on the card one
-    kernel block per (row, kv head) walks the row's visible slots."""
+    kernel block per (row, kv head) walks all of the row's visible slots
+    (the kernel's single-pass schedule: no merge, no workspace)."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, length)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     out = _decode_launch("decode_attention", q, k_cache, v_cache, length,
-                         split=k_cache.shape[1])
+                         single=True)
     decode_attention.launches += 1
     return out
 
@@ -314,17 +352,20 @@ decode_attention.launches = 0
 
 
 def decode_attention_blocked(q, k_cache, v_cache, length, block: int = 256):
-    """K4: same contract as decode_attention_reference; on the card each row
-    is cut into splits of `block` slots, each walked by its own kernel block
-    up to the row's length, and a second pass merges the splits."""
+    """K4: same contract as decode_attention_reference. `block` is the JAX
+    kernel's VMEM block of cache slots; it must be > 0 and sets nothing on
+    the card, where decode_plan's splits blocks a (row, kv head) each walk
+    an even share of the row's visible slots, cut on the card in whole
+    tiles, and a second pass merges them (none where the plan gives one
+    split)."""
+    if block <= 0:
+        raise ValueError(f"decode_attention_blocked: block {block} must be > 0")
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, length)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_blocked: unsupported device {q.device}")
-    if block <= 0:
-        raise ValueError(f"decode_attention_blocked: block {block} must be > 0")
     out = _decode_launch("decode_attention_blocked", q, k_cache, v_cache,
-                         length, split=block)
+                         length, single=False)
     decode_attention_blocked.launches += 1
     return out
 

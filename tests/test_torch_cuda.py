@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from freeze_omni_tpu_torch.ops import _build
 from freeze_omni_tpu_torch.ops import attention as att
 from freeze_omni_tpu_torch.ops import quant_matmul as qm
 
@@ -387,14 +388,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         att.prefill_quant(q, k_q, k_s, v_q, v_s, qend.long())
 
 
-def _decode_inputs(B, H, Hkv, dk, S, q_dtype, kv_dtype, device, seed=0):
-    """Ragged lengths including 0, 1, 255, 256, 257 and S-1; NaN in the
-    scratch slot S-1 and in every slot at or past a row's length."""
+def _decode_inputs(B, H, Hkv, dk, S, q_dtype, kv_dtype, device, seed=0,
+                   lengths=None):
+    """Ragged lengths including 0, 1, 255, 256, 257 and S-1 (or `lengths`);
+    NaN in the scratch slot S-1 and in every slot at or past a row's
+    length."""
     rng = np.random.RandomState(seed)
     q = torch.from_numpy(rng.randn(B, H, dk).astype(np.float32)).to(q_dtype)
     k = rng.randn(B, S, Hkv, dk).astype(np.float32)
     v = rng.randn(B, S, Hkv, dk).astype(np.float32)
-    special = [0, 1, 255, 256, 257, S - 1]
+    special = [0, 1, 255, 256, 257, S - 1] if lengths is None else list(lengths)
     length = np.array([special[i] if i < len(special) else rng.randint(1, S)
                        for i in range(B)], np.int32)
     length = np.minimum(length, S - 1)
@@ -434,6 +437,85 @@ def test_decode_attention_matches_plain(cuda, which, B, H, Hkv, dk, S, q_dtype,
     tol = TOL[q_dtype]
     torch.testing.assert_close(out[valid].float(), ref[valid].float(),
                                rtol=tol, atol=tol)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+FIRST_RESPONSE = [73, 80, 87, 94, 102, 109, 116, 123]   # visible of 2048
+TILE_EDGES = [0, 1, 31, 32, 33, 64, 309, 464]   # tiles of 32 slots
+DECODE_PLAN_CASES = {   # B, H, Hkv, dk, S, q dtype, cache dtype, lengths
+    # the phase-7 pool shape: one split (a pass a row, no merge)
+    "pool_tile_edges": (8, 14, 14, 64, 465, F32, F32, TILE_EDGES),
+    # the same rows under 4 kv heads: 4 splits cut at the tile edges
+    "split_tile_edges": (8, 4, 4, 64, 465, F32, F32, TILE_EDGES),
+    # first_response: one split
+    "first_response": (8, 14, 14, 64, 2048, F32, F32, FIRST_RESPONSE),
+    # 8 splits against rows of 3-4 tiles: blocks past the tiles exit
+    "short_rows": (8, 2, 2, 64, 2048, F32, F32, FIRST_RESPONSE),
+    # the phase-9 pool: rows of 1521 slots, 2 splits
+    "service_pool": (4, 14, 14, 64, 1521, F32, F32, [1520, 700, 33, 0]),
+    # the LLM's text decode at --kv_quant 0: rep 7 x dk 128, 4 splits
+    "llm_bf16": (8, 28, 4, 128, 2048, BF16, BF16, [0, 1, 545, 2047, 32, 63, 1000, 1537]),
+    "bf16_q_f32_cache": (4, 28, 4, 128, 700, BF16, F32, [699, 0, 97, 1]),
+    "f32_q_bf16_cache": (4, 14, 14, 64, 700, F32, BF16, [699, 0, 97, 1]),
+    "rep16_dk64": (2, 16, 1, 64, 300, BF16, BF16, [299, 65]),   # rep * dk = 1024
+    "rep8_dk128_f32": (2, 8, 1, 128, 300, F32, F32, [299, 33]),
+}
+
+
+@pytest.mark.parametrize("which", ["decode_attention", "decode_attention_blocked"])
+@pytest.mark.parametrize("case", list(DECODE_PLAN_CASES))
+def test_decode_attention_plan_cases(cuda, which, case):
+    """K4's plan edges (and K3's single pass on the same inputs) in all four
+    dtype pairs: one launch a call, two calls bit-identical, masked rows
+    zero, valid rows within the tolerance of q's dtype."""
+    B, H, Hkv, dk, S, q_dtype, kv_dtype, lengths = DECODE_PLAN_CASES[case]
+    q, k, v, length = _decode_inputs(B, H, Hkv, dk, S, q_dtype, kv_dtype, cuda,
+                                     seed=S, lengths=lengths)
+    assert length.tolist() == [min(n, S - 1) for n in lengths]
+    fn = getattr(att, which)
+    before = fn.launches
+    out = fn(q, k, v, length)
+    out2 = fn(q, k, v, length)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(out, out2)
+    ref = att.decode_attention_reference(q, k, v, length)
+    valid = length > 0
+    assert out.dtype == q_dtype and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    assert (out[~valid] == 0).all()
+    tol = TOL[q_dtype]
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("which", ["decode_attention", "decode_attention_blocked"])
+@pytest.mark.parametrize("case", ["first_response", "short_rows", "llm_bf16"])
+def test_decode_attention_replayed_from_a_cuda_graph(cuda, which, case):
+    """A call captured in a CUDA graph (after warm-up calls on the capture
+    stream, as a caller captures) and replayed gives the eager call's bits,
+    also after the lengths change in place."""
+    B, H, Hkv, dk, S, q_dtype, kv_dtype, lengths = DECODE_PLAN_CASES[case]
+    q, k, v, length = _decode_inputs(B, H, Hkv, dk, S, q_dtype, kv_dtype, cuda,
+                                     seed=S, lengths=lengths)
+    fn = getattr(att, which)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn(q, k, v, length)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        static_out = fn(q, k, v, length)
+    for step in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, fn(q, k, v, length))
+        length.copy_(torch.clamp(length - 17, min=0))   # rows shrink, one to 0
+        k[:, :, :, :] = torch.where(torch.isnan(k), k, k * 0.5)
+    del graph
+    _build.release_workspace(torch.cuda.current_device(), stream.cuda_stream)
 
 
 def test_gqa_decode_launches_k4(cuda):
