@@ -44,7 +44,13 @@ raises and the script exits nonzero without printing a result. Phases:
    cache, f32 q on a bf16 cache); NaN in slot S-1 and in every slot past a
    row's length. Valid rows are compared; masked rows (qend = 0, length =
    0) must be zero; two calls bit-identical, one launch a call, and K4
-   replayed from a CUDA graph equal to an eager call;
+   replayed from a CUDA graph equal to an eager call; K4 at the per-session
+   path's two B = 1 shapes (the LLM's bf16 text decode, 28 / 4 heads of
+   128, 32 splits; StreamingTTS's f32 decoder, 14 heads of 64, 9 splits; S
+   2048) at lengths 0, 1, 31, 32, 33 and 2047 with NaN past each (bf16 to
+   1e-3, f32 to 1e-4), and K1 at
+   N = 1 on the lm_head and at the per-session chunks' N (12, 17) on every
+   projection;
 4. tick parity at full width and reduced depth: the flagship widths with 2
    LLM layers, int8 KV, and int8 weights, then int4 weights (as the server
    draws them); for each, the same weights and fbank windows
@@ -128,7 +134,33 @@ raises and the script exits nonzero without printing a result. Phases:
    step, host frontend, VAD alone, engine.tick), each continuation round's
    time (resp_segment text-decode steps of the speaking sessions, where
    K5 runs its small-N path), the resident LLM weight
-   bytes int4 beside int8, the peak memory and the launches.
+   bytes int4 beside int8, the peak memory and the launches;
+10. the per-session path (phase 9's server freed first): (a) card against
+   CPU at flagship width with 2 LLM layers, int8 weights and the bf16 float
+   KV: DuplexPipeline over user (ipu_sl, ipu_cl) and system chunks,
+   probabilities within 5e-3, KV lengths and pe_index equal, then
+   DuplexResponder's first 8 text draws teacher-forced on the CPU (the
+   phase-5 near-tie rule); (b) full depth: the port's Server from
+   get_args(SESSION_ARGV) (flagship, --respond, no --engine) and two
+   DuplexSessions on its pipeline, each on its own worker thread
+   (Server._open_session, as the websocket handler opens them). Users
+   stream phase 9's surrogate in real time (a 224 ms chunk every 224 ms),
+   the system line -66 dBFS noise plus the fed-back speech; each session's first decision after its first user
+   IPU closed runs at threshold 0 and speaks a fixed sentence (random-
+   weight text decodes to nothing) with the response's hiddens as prefix,
+   through the responder's own synthesis step (StreamingTTS, max_tokens
+   cut to 200). Launch counts are zeroed just before and read just after:
+   K1 and K4 must launch, K4 from both the text decode and StreamingTTS
+   (counted by caller), K2, K3 and K5 must not. The role prefill must be
+   unchanged after the sessions and a reset_context; every user gets
+   ipu_sl/ipu_el and finite probabilities; the PCM is finite within
+   [-1, 1] and the system VAD hears the feedback. Prints _predict_stage per
+   chunk p50/p90 against 224 ms, dialog_ss to the first response_audio,
+   the peak memory and the launches; then, on the same pipeline with one
+   caller, a user chunk and a text-decode step, and the device's busy
+   share of 4 profiled chunks (torch.profiler); then K1 (N = 1 with the
+   lm_head, the chunks' N) and K4 (both B = 1 shapes, at the run's last
+   lengths) are timed as in phase 8.
 
 The last lines: the nvidia-smi line, one {"kernels": [...]} JSON line and
 the device JSON line.
@@ -429,6 +461,21 @@ K1_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
 TILE_NS = (17, 89, 232, 233, 1856)   # the tile path's N in phase 3
 
 
+def session_chunk_ns():
+    """N of the per-session path's chunk prefills at flagship: a 224 ms
+    window's adapter tokens after the chat prefix of each identity (the
+    prefix rows run masked on ipu_cl too)."""
+    from freeze_omni_tpu_torch.config import flagship_system
+    from freeze_omni_tpu_torch.models.audio_llm import chunk_tokens
+    from freeze_omni_tpu_torch.utils.tokenizer import ByteTokenizer, ChatTemplate
+
+    cfg = flagship_system()
+    chat = ChatTemplate(ByteTokenizer(cfg.audio_llm.llm.vocab_size))
+    t = chunk_tokens(cfg.duplex.gating.frames_per_step)
+    return tuple(sorted({len(chat.user_prefix_ids) + t,
+                         len(chat.system_prefix_ids) + t}))
+
+
 def k1_inputs(N, K, O, seed):
     import torch
 
@@ -540,6 +587,10 @@ DECODE_CASES = (
     ("bf16 q, f32 cache", 4, 28, 4, 128, 700, "bfloat16", "float32", [699, 0, 97, 1]),
     ("f32 q, bf16 cache", 4, 14, 14, 64, 700, "float32", "bfloat16", [699, 0, 97, 1]),
 )
+# K4 at B = 1, the per-session path: (label, H, Hkv, dk, S, q/cache dtype)
+SESSION_DECODE = (("session LLM text decode", 28, 4, 128, 2048, "bfloat16"),
+                  ("session StreamingTTS", 14, 14, 64, 2048, "float32"))
+SESSION_LENGTHS = (0, 1, 31, 32, 33, 2047)
 
 
 def graph_equals_eager(fn, args):
@@ -575,8 +626,9 @@ def phase_kernel_parity():
     torch.backends.cuda.matmul.allow_tf32 = False
     tol = 2e-2
     k1_err = 0.0
-    k1_cases = [(K, O, N) for (K, O) in K1_SHAPES for N in (1, 8) + TILE_NS]
-    k1_cases += [(3584, 152064, N) for N in (8, 89)]   # the int8 lm_head
+    k1_cases = [(K, O, N) for (K, O) in K1_SHAPES
+                for N in sorted({1, 8, *TILE_NS, *session_chunk_ns()})]
+    k1_cases += [(3584, 152064, N) for N in (1, 8, 89)]   # the int8 lm_head
     k1_cases += [(3776, 520, N) for N in (17, 232)]    # ragged O
     for (K, O, N) in k1_cases:
         x, w_q, scale = k1_inputs(N, K, O, seed=N + K + O)
@@ -699,6 +751,38 @@ def phase_kernel_parity():
                 att.decode_attention_blocked, (q, k, v, length)):
             raise AssertionError(f"K4 replayed from a CUDA graph differs from "
                                  f"an eager call ({label})")
+    fn = att.decode_attention_blocked
+    for (label, H, Hkv, dk, S, dt) in SESSION_DECODE:
+        dtype = getattr(torch, dt)
+        # tighter than the batched cases' bf16 2e-2: a split left out at
+        # length 2047 moves an output by ~1e-2, which 2e-2 would pass
+        dtol = 1e-3 if dtype == torch.bfloat16 else 1e-4
+        errs = []
+        for n in SESSION_LENGTHS:
+            q, k, v, length = decode_inputs(1, H, Hkv, dk, S, dtype, dtype,
+                                            seed=n + dk, lengths=[n])
+            before = fn.launches
+            out, out2 = fn(q, k, v, length), fn(q, k, v, length)
+            ref = att.decode_attention_reference(q, k, v, length)
+            torch.cuda.synchronize()
+            if fn.launches - before != 2 or not torch.equal(out, out2):
+                raise AssertionError(f"K4 {label} length {n}: launches rose by "
+                                     f"{fn.launches - before}, or two calls differ")
+            if not torch.isfinite(out.float()).all() or (n == 0 and (out != 0).any()):
+                raise AssertionError(f"K4 {label} length {n}: non-finite output "
+                                     f"or a nonzero length-0 row")
+            err, ok = max_violation(out, ref, dtol) if n else (0.0, True)
+            errs.append(err)
+            dec_err["decode_attention_blocked"] = max(
+                dec_err["decode_attention_blocked"], err)
+            if not ok:
+                raise AssertionError(f"K4 disagrees with its plain version "
+                                     f"({label}, length {n}): {err}")
+        log(f"[parity] decode_attention_blocked {label} B=1 H={H} Hkv={Hkv} "
+            f"dk={dk} S={S} {dt}, {att.decode_plan(1, H, Hkv, dk, S).splits} "
+            f"splits: lengths {list(SESSION_LENGTHS)} (NaN past each), "
+            f"max_abs_err {[f'{e:.3e}' for e in errs]} (tol {dtol}); length 0 "
+            f"zero; two calls bit-identical")
     return {"quant_matmul": k1_err, "quant_matmul4": max(k5_err.values()),
             "quant_matmul4_paths": k5_err, "prefill_quant": k2_err, **dec_err}
 
@@ -1786,6 +1870,429 @@ def phase_k5_times(serve, errs, smi):
             "card": smi, **decode, "crossover": crossover}
 
 
+SESSION_ARGV = ["--preset", "flagship", "--respond", "--seed", "0"]
+
+
+def session_windows(gating_cfg, audio, statuses):
+    """Gated fbank windows [1, T, 80] of `audio` with per-chunk statuses,
+    and each window's status for DuplexPipeline ('ipu_sl' / 'ipu_cl')."""
+    from freeze_omni_tpu_torch.frontend.chunker import GatingChunker, gate_stream
+
+    items = gate_stream(GatingChunker(gating_cfg), audio, statuses)
+    return [(f, "ipu_sl" if sl else "ipu_cl") for f, sl in items]
+
+
+def phase_session_parity():
+    """The per-session path, card against CPU, at flagship width with 2 LLM
+    layers, int8 weights and the float bf16 KV the pipeline keeps: the same
+    user and system windows through DuplexPipeline on both devices, then the
+    first 8 text draws of DuplexResponder on the resulting context,
+    teacher-forced on the CPU (SamplingTape)."""
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch.duplex.responder import DuplexResponder
+    from freeze_omni_tpu_torch.models import audio_llm, qwen2
+    from freeze_omni_tpu_torch.pipeline import DuplexPipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = parity_config()
+    params = audio_llm.init_params(cfg.audio_llm, seed=3, device="cuda",
+                                   quantize_llm=True, quant_bits=8)
+    pipes = {"card": DuplexPipeline(cfg, params=params, device="cuda"),
+             "cpu": DuplexPipeline(cfg, params=tree_to(params, "cpu"), device="cpu")}
+    n = cfg.duplex.gating.samples_per_chunk
+    rng = np.random.RandomState(5)
+    user = session_windows(cfg.duplex.gating, np.concatenate([
+        np.zeros(n, np.float32), 0.5 * speech_surrogate(rng, 4 * n)]),
+        [None, "ipu_sl", "ipu_cl", "ipu_cl"])
+    system = session_windows(cfg.duplex.gating, 0.5 * speech_surrogate(rng, 2 * n),
+                             ["ipu_sl", "ipu_cl"])
+    order = [("user", user[0]), ("user", user[1]), ("system", system[0]),
+             ("user", user[2]), ("system", system[1]), ("user", user[3])]
+    runs = {}
+    for side, pl in pipes.items():
+        kv = qwen2.copy_cache(pl.speech_dialogue(None, "", "pre")[1])
+        if kv.k.dtype != torch.bfloat16:
+            raise AssertionError(f"the per-session KV is {kv.k.dtype}, not bf16")
+        caches = {"user": (None, None, 0), "system": (None, None, 0)}
+        rows = []
+        for identity, (feat, status) in order:
+            c = caches[identity]
+            pred, kv, adp, enc, pe = pl.speech_dialogue(
+                feat, identity, status, past_key_values=kv, adapter_cache=c[0],
+                encoder_cache=c[1], pe_index=c[2])
+            caches[identity] = (adp, enc, pe)
+            rows.append((pred, int(kv.length[0]), int(enc.pe_index[0])))
+        runs[side] = (rows, kv)
+    worst = 0.0
+    for (pg, lg, eg), (pc, lc, ec) in zip(runs["card"][0], runs["cpu"][0]):
+        if (lg, eg) != (lc, ec):
+            raise AssertionError(f"KV length / pe_index {lg}/{eg} (card) vs "
+                                 f"{lc}/{ec} (cpu)")
+        if pg is None:
+            continue
+        for key in ("state_1", "state_2"):
+            d = abs(pg[key] - pc[key])
+            worst = max(worst, d)
+            if not (np.isfinite(pg[key]) and d <= 5e-3):
+                raise AssertionError(f"{key}: card {pg[key]} vs cpu {pc[key]}")
+    tape = SamplingTape()
+    lengths = {}
+    for side, pl in pipes.items():
+        # 1 + 7 draws: the first token and one segment of 7
+        responder = DuplexResponder(pl.core, None, cfg, max_tokens=8, segment=7)
+        responder.speak = lambda text, hiddens: None   # text only, no synthesis
+        kv = runs[side][1]
+        with tape.attached(replay=side == "cpu"):
+            sentences = list(responder.respond(kv))
+        lengths[side] = (int(kv.length[0]), len(sentences))
+    if tape.pos != len(tape.tokens) or tape.stats["text"]["draws"] != 8:
+        raise AssertionError(f"replayed {tape.pos} of {len(tape.tokens)} draws "
+                             f"({tape.stats['text']['draws']} text draws, want 8)")
+    if lengths["card"] != lengths["cpu"]:
+        raise AssertionError(f"after the response: (KV length, sentences) "
+                             f"{lengths['card']} (card) vs {lengths['cpu']} (cpu)")
+    st = tape.stats["text"]
+    log(f"[session-parity] DuplexPipeline, 2-layer flagship widths, int8 "
+        f"weights, bf16 KV: {len(order)} chunks (user ipu_sl/ipu_cl, system "
+        f"ipu_sl/ipu_cl): card vs cpu max |dprob| {worst:.3e} (atol 5e-3); KV "
+        f"lengths {[r[1] for r in runs['card'][0]]} and pe_index equal; "
+        f"DuplexResponder's first 8 text draws teacher-forced on the cpu: "
+        f"{st['flips']} near-tie flips (worst gap {st['worst_gap']:.3e}, margin "
+        f"{TIE_FRAC}); KV length and sentences after the response "
+        f"{lengths['card']} on both")
+    return worst
+
+
+def phase_sessions(smi):
+    """The per-session path at full width and depth: the port's Server
+    without --engine (SESSION_ARGV: int8 weights, bf16 frontend and KV, one
+    DuplexResponder over a StreamingTTS) and two DuplexSessions on its
+    pipeline, each pumping on its own worker thread as two websocket clients
+    get them (Server._open_session: warm-up, then start)."""
+    import dataclasses
+    import itertools
+    import threading
+
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch.bin.serve import Server, get_args
+    from freeze_omni_tpu_torch.duplex.events import EventSink
+    from freeze_omni_tpu_torch.models import qwen2
+
+    torch.backends.cudnn.allow_tf32 = True   # serving default
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = Server(get_args(SESSION_ARGV))
+    if server.service is not None or server.responder is None:
+        raise AssertionError("the server did not take the per-session path")
+    pipeline, responder, cfg = server.pipeline, server.responder, server.cfg
+    # the sentence budget cut as in phase 7; random-weight text decodes to
+    # nothing, so each spoken sentence takes a fixed text, its prefix the
+    # response's own hiddens, through the responder's own synthesis step
+    responder.tts.cfg = dataclasses.replace(cfg.tts, max_tokens=TTS_MAX_TOKENS)
+    texts, count = fixed_sentences(), itertools.count()
+
+    def synthesize(tokens, hiddens):
+        text = texts[next(count) % len(texts)]
+        return text, responder.speak(text, hiddens)
+
+    responder._synthesize = synthesize
+    role = pipeline.core.role_kv(cfg.duplex.default_prompt)
+    role_before = qwen2.copy_cache(role)
+    torch.cuda.synchronize()
+    log(f"[session] Server({' '.join(SESSION_ARGV)}) built in "
+        f"{time.perf_counter() - t0:.1f} s; role prefill {int(role.length[0])} "
+        f"slots of {role.k.shape[2]}, {role.k.dtype}")
+
+    sids = ["c0", "c1"]
+    sinks = {sid: EventSink() for sid in sids}
+    marks = {sid: {} for sid in sids}
+    for sid in sids:
+        def mark(name, sid=sid):
+            def on(_):
+                marks[sid].setdefault(name, time.perf_counter())
+            return on
+        sinks[sid].on("dialog_ss_callback", mark("dialog_ss"))
+        sinks[sid].on("response_audio", mark("audio"))
+    t0 = time.perf_counter()
+    sessions = {sid: server._open_session(sid, sinks[sid]) for sid in sids}
+    open_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # predictions stay below threshold until the session's first user IPU
+    # has closed; its next decision speaks, the rest do not
+    predict_ms, lock = {"before": [], "after": []}, threading.Lock()
+    for sid, sess in sessions.items():
+        sess.resp_threshold = 2.0
+
+        def on_vad(e, sess=sess, sid=sid):
+            if e["identity"] == "user" and e["status"] == "ipu_el" \
+                    and "dialog_ss" not in marks[sid]:
+                sess.resp_threshold = 0.0
+        sinks[sid].on("vad_event", on_vad)
+        sinks[sid].on("dialog_ss_callback",
+                      lambda _, sess=sess: setattr(sess, "resp_threshold", 2.0))
+        real = sess._predict_stage
+
+        def timed(feat, real=real, sid=sid):
+            # until the chunk's work is done on the card; the sessions share
+            # one stream, so this includes the other session's work queued
+            # ahead of it, as the session feels it
+            spoke = "dialog_ss" in marks[sid]
+            t = time.perf_counter()
+            real(feat)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+            if spoke == ("dialog_ss" in marks[sid]):   # no response inside
+                with lock:
+                    any_ss = any("dialog_ss" in m for m in marks.values())
+                    predict_ms["after" if any_ss else "before"].append(
+                        (time.perf_counter() - t) * 1e3)
+        sess._predict_stage = timed
+
+    heads = cfg.audio_llm.llm.num_heads
+    calls = {"text decode": 0, "StreamingTTS": 0}
+    last_len = {}
+    real_decode = qwen2.gqa_decode
+
+    def recorded(q, k, v, length):
+        kind = "text decode" if q.shape[1] == heads else "StreamingTTS"
+        with lock:
+            calls[kind] += 1
+            last_len[kind] = (tuple(k.shape), length.clone())
+        return real_decode(q, k, v, length)
+
+    n = cfg.duplex.gating.samples_per_chunk
+    chunk_s = n / 16000   # the clients stream in real time, a 224 ms chunk each
+    users = [np.concatenate([np.zeros((1 + i) * n, np.float32),
+                             0.5 * speech_surrogate(np.random.RandomState(200 + i), 24000),
+                             np.zeros(24000, np.float32),
+                             0.5 * speech_surrogate(np.random.RandomState(300 + i), 48000),
+                             np.zeros(32000, np.float32)]) for i in range(len(sids))]
+    rng = np.random.RandomState(1)
+    torch.cuda.synchronize()
+    qwen2.gqa_decode = recorded
+    zero_launches()
+    t_run = time.perf_counter()
+    try:
+        steps = max(len(u) for u in users) // n + 1
+        for k in range(steps):
+            for i, sid in enumerate(sids):
+                chunk = users[i][k * n:(k + 1) * n]
+                sessions[sid].enqueue_audio_data("user", {"audio": np.concatenate(
+                    [chunk, np.zeros(n - len(chunk), np.float32)]), "enc": "f32"})
+                sessions[sid].enqueue_audio_data("system", {
+                    "audio": (LINE_NOISE * rng.randn(n)).astype(np.float32),
+                    "enc": "f32"})
+            time.sleep(max(0.0, t_run + (k + 1) * chunk_s - time.perf_counter()))
+
+        def settled():
+            for sid, sess in sessions.items():
+                if sinks[sid].events_of("error"):
+                    raise AssertionError(f"{sid}: {sinks[sid].events_of('error')}")
+                fe = sess.frontend
+                heard = [e for e in sinks[sid].events_of("vad_event")
+                         if e["identity"] == "system"]
+                busy = any(q.available() >= n for q in fe.pcm.values()) \
+                    or len(fe.serializer)
+                if busy or "audio" not in marks[sid] or not heard:
+                    return False
+            return True
+
+        deadline = time.perf_counter() + 240
+        while not settled():
+            if time.perf_counter() > deadline:
+                raise AssertionError("the sessions did not settle in 240 s")
+            time.sleep(0.1)
+        time.sleep(1.0)   # the system IPU's last windows
+        for sess in sessions.values():
+            sess.release()
+        torch.cuda.synchronize()
+    finally:
+        qwen2.gqa_decode = real_decode
+        for sess in sessions.values():
+            sess.release()
+    run_s = time.perf_counter() - t_run
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    sessions[sids[0]].reset_context()
+    torch.cuda.synchronize()
+    for name, a, b in zip(qwen2.KVCache._fields, role, role_before):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"the role prefill's {name} changed")
+    if int(sessions[sids[0]].past_key_values.length[0]) != int(role.length[0]):
+        raise AssertionError("reset_context did not restart from the role prefill")
+    for sid in sids:
+        ev = sinks[sid]
+        st = [e["status"] for e in ev.events_of("vad_event") if e["identity"] == "user"]
+        if "ipu_sl" not in st or "ipu_el" not in st:
+            raise AssertionError(f"{sid}: user VAD events {st}")
+        upd = ev.events_of("dialog_state_update")
+        if not upd or not all(np.isfinite([u["probs"]["state_1"],
+                                           u["probs"]["state_2"]]).all() for u in upd):
+            raise AssertionError(f"{sid}: no finite dialog_state_update")
+        if ev.events_of("error"):
+            raise AssertionError(f"{sid}: error events {ev.events_of('error')}")
+        for a in ev.events_of("response_audio"):
+            if not (np.isfinite(a["pcm"]).all() and np.abs(a["pcm"]).max(initial=0.0) <= 1.0):
+                raise AssertionError(f"{sid}: response PCM not finite or outside [-1, 1]")
+    for key in ("quant_matmul", "decode_attention_blocked"):
+        if launches[key] <= 0:
+            raise AssertionError(f"{key} was not launched on the per-session path")
+    for key in ("prefill_quant", "decode_attention", "quant_matmul4"):
+        if launches[key]:
+            raise AssertionError(f"{key} launched {launches[key]} times on the "
+                                 f"per-session path (float KV, int8 weights)")
+    for kind, c in calls.items():
+        if not c:
+            raise AssertionError(f"K4 was not reached from the {kind}")
+    lat = {sid: (marks[sid]["audio"] - marks[sid]["dialog_ss"]) * 1e3 for sid in sids}
+    seconds = {sid: round(sum(a["pcm"].shape[-1] for a in sinks[sid].events_of(
+        "response_audio")) / 16000, 3) for sid in sids}
+    lengths = {kind: (shape, ln.tolist()) for kind, (shape, ln) in last_len.items()}
+    log(f"[session] ({smi}) 2 sessions opened (construction + warm-up) in "
+        f"{open_s:.2f} s; streamed and settled in {run_s:.2f} s")
+    for when, label in (("before", "before either session spoke"),
+                        ("after", "once a response had started")):
+        log(f"[session] _predict_stage per chunk {label} (both sessions' "
+            f"workers, both identities, synchronized; {len(predict_ms[when])} "
+            f"chunks) {pct(predict_ms[when]) if predict_ms[when] else 'none'} "
+            f"against {BUDGET_MS:.0f} ms")
+    log(f"[session] dialog_ss to the first response_audio (the whole first "
+        f"sentence: text decode, then StreamingTTS with max_tokens "
+        f"{TTS_MAX_TOKENS}) ms {[round(lat[s], 2) for s in sids]}; audio per "
+        f"session (s) {seconds}; the system VAD heard the feedback in both")
+    log(f"[session] peak device memory while building the server and the "
+        f"sessions {build_peak / 2**30:.2f} GiB (the int8 draw), while serving "
+        f"{peak / 2**30:.2f} GiB; launches "
+        f"{launches}; K4 calls by caller {calls} (K4 launches "
+        f"{launches['decode_attention_blocked']}); the last K4 call's cache "
+        f"shape and length by caller {lengths}; role prefill unchanged after "
+        f"both sessions and a reset")
+    return {"server": server, "launches": launches, "k4_calls": calls,
+            "k4_lengths": lengths}
+
+
+def phase_session_one_caller(server, smi):
+    """Where a per-session chunk's time goes, on the server's pipeline with
+    one caller: user windows of the speech surrogate straight into
+    DuplexPipeline.speech_dialogue (no VAD, no gating on the clock; the call
+    fetches its probabilities, so it ends synchronized), one text-decode step
+    at B = 1, and torch.profiler over 4 chunks: the kernels' time over the
+    wall (the device's busy share) and the host operators with the most self
+    time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from freeze_omni_tpu_torch.models import audio_llm, qwen2
+
+    pipeline, cfg = server.pipeline, server.cfg
+    core = pipeline.core
+    n = cfg.duplex.gating.samples_per_chunk
+    windows = session_windows(cfg.duplex.gating, 0.5 * speech_surrogate(
+        np.random.RandomState(400), 17 * n), ["ipu_sl"] + ["ipu_cl"] * 16)
+
+    def run(items, out_ms):
+        kv = qwen2.copy_cache(pipeline.speech_dialogue(None, "", "pre")[1])
+        state = (None, None, 0)
+        for feat, status in items:
+            t = time.perf_counter()
+            _, kv, adp, enc, pe = pipeline.speech_dialogue(
+                feat, "user", status, past_key_values=kv, adapter_cache=state[0],
+                encoder_cache=state[1], pe_index=state[2])
+            out_ms.append((time.perf_counter() - t) * 1e3)
+            state = (adp, enc, pe)
+        return kv
+
+    chunk_ms = []
+    kv = run(windows, chunk_ms)
+    tok, step_ms = core._ids([7]), []
+    with torch.no_grad():
+        for _ in range(11):
+            t = time.perf_counter()
+            tok, _, _ = audio_llm.generate_step(core.params, cfg.audio_llm, tok, kv,
+                                                core.next_key(), cfg.sampling)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run(windows[:4], [])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    kernel_ms = sum(getattr(e, "self_device_time_total", 0) for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+    log(f"[session-one] ({smi}) one caller, a user chunk ({len(chunk_ms) - 1} "
+        f"after the first) {pct(chunk_ms[1:])}; a text-decode step at B = 1 "
+        f"(10 after the first, synchronized) {pct(step_ms[1:])}")
+    log(f"[session-one] profiled 4 chunks: wall {wall_ms:.2f} ms, kernels "
+        f"{kernel_ms:.2f} ms, device busy share {kernel_ms / wall_ms:.3f}; top "
+        f"host self time: " + "; ".join(
+            f"{e.key} {e.count} calls {e.self_cpu_time_total / 1e3:.2f} ms"
+            for e in top))
+
+
+def phase_session_kernel_times(sess, kernels, smi):
+    """K1 and K4 at the per-session path's B = 1 shapes, on the server's
+    int8 layer-0 weights: K1's 7 projections at N = 1 with the lm_head
+    (text decode) and at each chunk's N; K4 at the text decode's and
+    StreamingTTS's cache shapes with the last lengths the run gave them."""
+    import torch
+
+    from freeze_omni_tpu_torch.ops import attention as att
+
+    llm = sess["server"].pipeline.core.params["llm"]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    k1 = {"decode_N1_with_lm_head": k1_layer(llm["layers"], llm["lm_head"], 1, g)}
+    for N in session_chunk_ns():
+        k1[f"chunk_N{N}"] = k1_layer(llm["layers"], None, N, g)
+    for label, t in k1.items():
+        log(f"[time] K1 per-session {label} ({smi}): kernel {t['ms']:.4f} ms "
+            f"eager, {t['device_ms']:.4f} ms device, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
+            f"torch._weight_int8pack_mm {t['library_ms']:.4f} ms, dense bf16 "
+            f"matmul {t['dense_bf16_ms']:.4f} ms")
+    k4 = {}
+    for kind, (shape, length) in sess["k4_lengths"].items():
+        _, S, Hkv, dk = shape
+        H = 28 if kind == "text decode" else 14
+        dtype = torch.bfloat16 if kind == "text decode" else torch.float32
+        k = torch.randn((1, S, Hkv, dk), generator=g, device="cuda").to(dtype)
+        v = torch.randn((1, S, Hkv, dk), generator=g, device="cuda").to(dtype)
+        ln = torch.tensor(length, dtype=torch.int32, device="cuda")
+        k4[kind] = decode_time(att.decode_attention_blocked, k, v, ln, H, g)
+        k4[kind]["splits"] = att.decode_plan(1, H, Hkv, dk, S).splits
+        k4[kind]["length"] = length
+        log_decode_time("decode_attention_blocked", f"per-session {kind} B=1 "
+                        f"S={S} H={H} Hkv={Hkv} dk={dk} length {length}, "
+                        f"{k4[kind]['splits']} splits", k4[kind], smi)
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "dense_bf16_ms")
+    for entry in kernels:
+        name = entry["name"].split(" ")[0]
+        entry["launches_per_session_path"] = sess["launches"][name]
+        entry["launches"] += sess["launches"][name]
+        if name == "quant_matmul":
+            entry["per_session"] = {lbl: {k: t[k] for k in keys}
+                                    for lbl, t in k1.items()}
+        if name == "decode_attention_blocked":
+            entry["per_session"] = {kind: {k: r[k] for k in (
+                "ms", "device_ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms", "splits", "length")}
+                for kind, r in k4.items()}
+            entry["per_session_calls"] = sess["k4_calls"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import gc
@@ -1823,6 +2330,15 @@ def main() -> int:
         entry["launches"] += serve["launches"][key]
     phase_k4_service_times(serve, kernels, smi)
     kernels.insert(1, phase_k5_times(serve, errs, smi))
+    del serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_session_parity()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sess = phase_sessions(smi)
+    phase_session_one_caller(sess["server"], smi)
+    phase_session_kernel_times(sess, kernels, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

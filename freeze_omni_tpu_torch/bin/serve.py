@@ -1,11 +1,15 @@
 """Duplex dialog-state server of the PyTorch port (counterpart of
-freeze_omni_tpu/bin/serve.py in its --engine mode).
+freeze_omni_tpu/bin/serve.py).
 
-A websocket server that hosts duplex sessions on one continuous-batching
-DuplexService (one batched step per tick for every session) and streams the
+A websocket server that hosts duplex sessions and streams the
 monitoring-GUI event catalog (VAD state updates, VAD events, dialog-state
 updates, dialog_ss callbacks, and with --respond the spoken response) as JSON
-messages.
+messages. By default every websocket gets its own DuplexSession (its worker
+thread, its KV cache) on one shared DuplexPipeline, and with --respond one
+shared DuplexResponder speaks through a StreamingTTS (the reference's
+per-session path, bin/dialog_state_pred.py). With --engine every session
+runs on one continuous-batching DuplexService instead (one batched step per
+tick for every session).
 
 Protocol (JSON messages):
   client -> server:
@@ -13,22 +17,26 @@ Protocol (JSON messages):
     {"type": "audio", "identity": "user"|"system", "pcm_b64": <s16le b64>,
      "sr": int (any rate; non-16k streams through a per-identity
      resampler), "time_stamp": float?}
-    {"type": "reset"} (a no-op in engine mode) | {"type": "stop"}
+    {"type": "reset"} (restarts the session's context from the role
+     prefill; a no-op with --engine) | {"type": "stop"}
   server -> client:
-    {"event": "session_ready", "sid": ...}
+    {"event": "session_ready", "sid": ...} | {"event": "reset_done"}
     {"event": "vad_state_update"|"vad_event"|"dialog_state_update"|
      "dialog_ss_callback"|"response_text"|"response_audio"|..., ...payload}
 
 Run (the card by default; --device cpu runs the plain PyTorch versions):
   python -m freeze_omni_tpu_torch.bin.serve --preset flagship --engine \\
       --quant 4 --kv_quant 8 --respond --port 8765
-  python -m freeze_omni_tpu_torch.bin.serve --preset tiny --engine --device cpu
+  python -m freeze_omni_tpu_torch.bin.serve --preset flagship --respond
+  python -m freeze_omni_tpu_torch.bin.serve --preset tiny --device cpu
 
 `--preset flagship` serves Qwen2-7B widths with seeded random weights drawn
-on the device in weight-only int8 (default) or int4 (`--quant 4`). The
-per-session path (no --engine), checkpoints, reference configs, voice
-prompts, LoRA, session snapshots and multi-GPU serving are not in the port
-yet: each of their flags exits naming its item in ROADMAP.md.
+on the device in weight-only int8 (default) or int4 (`--quant 4`).
+Per-session KV caches are float, in the activation dtype; --kv_quant,
+--max_sessions and --pipeline_ticks apply to --engine only. Checkpoints,
+reference configs, voice prompts, LoRA, session snapshots and multi-GPU
+serving are not in the port yet: each of their flags exits naming its item
+in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -48,7 +56,6 @@ from ..config import flagship_system, tiny_system
 
 MONITOR_HTML = Path(__file__).resolve().parents[2] / "freeze_omni_tpu" / "bin" / "monitor.html"
 
-_PER_SESSION = "ROADMAP.md D1 (the per-session path: InferencePipeline, DuplexSession)"
 _CHECKPOINT = "ROADMAP.md D2 (checkpoint loading: utils/factory.py, offline_infer)"
 _WAITING = (   # flag given -> SystemExit naming the ROADMAP item it waits for
     ("config", "ROADMAP.md D3 (reference app YAML: load_reference_app_yaml)"),
@@ -64,6 +71,7 @@ _WAITING = (   # flag given -> SystemExit naming the ROADMAP item it waits for
     ("num_hosts", "ROADMAP.md D9 (multi-GPU serving)"),
     ("host_id", "ROADMAP.md D9 (multi-GPU serving)"),
 )
+_ENGINE_ONLY = ("tp", "coordinator", "state_dir")   # refused without --engine
 
 
 def get_args(argv=None):
@@ -98,8 +106,8 @@ def get_args(argv=None):
                         "HTTP on this port")
     p.add_argument("--engine", action="store_true",
                    help="serve all sessions through the continuous-batching "
-                        "DuplexService (required: the per-session path is "
-                        "not in the port yet)")
+                        "DuplexService (default: one DuplexSession per "
+                        "connection)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--timeout", type=float, default=None,
                    help="stop serving after N seconds (for smoke tests)")
@@ -117,16 +125,14 @@ def get_args(argv=None):
 class Server:
     def __init__(self, args):
         from ..models import audio_llm
-        from ..runtime.service import DuplexService
         from ..utils.device import resolve_device
 
         for flag, item in _WAITING:
             if getattr(args, flag) is not None:
+                need = (", and it needs --engine" if flag in _ENGINE_ONLY
+                        and not args.engine else "")
                 raise SystemExit(f"--{flag} is not in the PyTorch port yet: "
-                                 f"it waits for {item}")
-        if not args.engine:
-            raise SystemExit("serving without --engine is not in the PyTorch "
-                             f"port yet: it waits for {_PER_SESSION}")
+                                 f"it waits for {item}{need}")
         self.args = args
         self.device = resolve_device(args.device)
         self.cfg = tiny_system() if args.preset == "tiny" else flagship_system()
@@ -150,23 +156,45 @@ class Server:
             self.cfg = dataclasses.replace(
                 self.cfg, duplex=dataclasses.replace(
                     self.cfg.duplex, resp_threshold=args.resp_threshold))
+        tts_params = self._init_tts_params() if args.respond else None
+        self.service = self.pipeline = self.responder = None
+        self._ticker_thread = None
+        if not args.engine:
+            self._init_per_session(params, tts_params)
+            return
+        from ..runtime.service import DuplexService
+
         self.cfg = dataclasses.replace(self.cfg, serving=dataclasses.replace(
             self.cfg.serving, max_sessions=args.max_sessions,
             pipeline_ticks=bool(args.pipeline_ticks),
             kv_quant_bits=args.kv_quant or None))
-        svc_tts = self._init_tts_params() if args.respond else None
         # full-scale serving runs half precision (bf16 KV and frontend); the
         # tiny preset stays f32
         kv_dtype = torch.float32 if args.preset == "tiny" else torch.bfloat16
         self.service = DuplexService(self.cfg, seed=args.seed,
-                                     tts_params=svc_tts, params=params,
+                                     tts_params=tts_params, params=params,
                                      kv_dtype=kv_dtype, device=self.device)
-        if svc_tts is not None and not args.no_tts_warmup:
+        if tts_params is not None and not args.no_tts_warmup:
             n = self.service.warmup_synthesis()
             print(f"synthesis pool warmup: {n} programs", flush=True)
         self._svc_stop = threading.Event()
         self._ticker_thread = threading.Thread(target=self._ticker, daemon=True)
         self._ticker_thread.start()
+
+    def _init_per_session(self, params, tts_params) -> None:
+        """One DuplexPipeline for every session (the KV of each is a float
+        cache in the activation dtype), and with --respond one
+        DuplexResponder over a StreamingTTS."""
+        from ..duplex.responder import DuplexResponder
+        from ..pipeline import DuplexPipeline
+        from ..tts import StreamingTTS
+
+        self.pipeline = DuplexPipeline(self.cfg, params=params,
+                                       seed=self.args.seed, device=self.device)
+        if tts_params is not None:
+            tts = StreamingTTS(tts_params, self.cfg.tts, seed=self.args.seed,
+                               device=self.device)
+            self.responder = DuplexResponder(self.pipeline.core, tts, self.cfg)
 
     def _ticker(self):
         import time
@@ -187,9 +215,10 @@ class Server:
 
     def stop_ticker(self, timeout: float = 30.0) -> None:
         """Stop the service's tick thread (the caller may then step
-        `self.service` itself)."""
-        self._svc_stop.set()
-        self._ticker_thread.join(timeout=timeout)
+        `self.service` itself); per-session serving has none."""
+        if self._ticker_thread is not None:
+            self._svc_stop.set()
+            self._ticker_thread.join(timeout=timeout)
 
     def _init_tts_params(self):
         """Seeded random speech decoder + codec (decode half) on the device."""
@@ -218,7 +247,8 @@ class Server:
                     pass
             sink.on(ev, fwd)
 
-        svc_sid = None
+        session = None   # per-session path: this connection's DuplexSession
+        svc_sid = None   # --engine: this connection's sid in the service
         sender = asyncio.create_task(self._sender(ws, outbox))
         try:
             async for raw in ws:
@@ -226,35 +256,48 @@ class Server:
                 t = msg.get("type")
                 if t == "start_session":
                     sid = msg.get("sid", "") or f"anon-{id(ws)}"
-                    if svc_sid is not None:
-                        self.service.close_session(svc_sid)
-                        svc_sid = None
-                    try:
-                        self.service.open_session(sid, sink=sink)
-                    except RuntimeError as e:  # no free slots / device OOM
-                        err = {"event": "error", "message": str(e)}
-                        if isinstance(e, CapacityError):
-                            # structured capacity refusal: clients can tell
-                            # "server full" from a protocol error
-                            err["kind"] = "capacity"
-                            err["active_sessions"] = e.active_sessions
-                        await ws.send(json.dumps(err))
-                        continue
-                    svc_sid = sid
+                    if self.service is None:
+                        if session is not None:
+                            await asyncio.to_thread(session.release)
+                        # construction and warmup run device steps: off the
+                        # event loop
+                        session = await asyncio.to_thread(
+                            self._open_session, sid, sink)
+                    else:
+                        if svc_sid is not None:
+                            self.service.close_session(svc_sid)
+                            svc_sid = None
+                        try:
+                            self.service.open_session(sid, sink=sink)
+                        except RuntimeError as e:  # no free slots / device OOM
+                            err = {"event": "error", "message": str(e)}
+                            if isinstance(e, CapacityError):
+                                # structured capacity refusal: clients can
+                                # tell "server full" from a protocol error
+                                err["kind"] = "capacity"
+                                err["active_sessions"] = e.active_sessions
+                            await ws.send(json.dumps(err))
+                            continue
+                        svc_sid = sid
                     await ws.send(json.dumps(
                         {"event": "session_ready", "sid": sid}))
                 elif t == "audio":
-                    if svc_sid is None:
+                    if session is None and svc_sid is None:
                         await ws.send(json.dumps(
                             {"event": "error", "message": "no session"}))
                         continue
-                    pcm = base64.b64decode(msg["pcm_b64"])
-                    self.service.enqueue_audio_data(
-                        svc_sid, msg["identity"],
-                        {"audio": pcm, "sr": msg.get("sr", 16000),
-                         "enc": "s16le", "time_stamp": msg.get("time_stamp")})
+                    data = {"audio": base64.b64decode(msg["pcm_b64"]),
+                            "sr": msg.get("sr", 16000), "enc": "s16le",
+                            "time_stamp": msg.get("time_stamp")}
+                    if session is not None:
+                        session.enqueue_audio_data(msg["identity"], data)
+                    else:
+                        self.service.enqueue_audio_data(svc_sid, msg["identity"],
+                                                        data)
                 elif t == "reset":
-                    pass  # resets a per-session context; engine mode has none
+                    if session is not None:  # engine mode has no context
+                        await asyncio.to_thread(session.reset_context)
+                        await ws.send(json.dumps({"event": "reset_done"}))
                 elif t == "stop":
                     break
                 else:
@@ -262,8 +305,21 @@ class Server:
                         {"event": "error", "message": f"unknown type {t!r}"}))
         finally:
             sender.cancel()
+            if session is not None:
+                await asyncio.to_thread(session.release)
             if svc_sid is not None:
                 self.service.close_session(svc_sid)
+
+    def _open_session(self, sid: str, sink):
+        """A DuplexSession on the shared pipeline, warmed up and pumping on
+        its own worker thread."""
+        from ..duplex.engine import DuplexSession
+
+        session = DuplexSession(self.pipeline, self.cfg, sink=sink, sid=sid,
+                                responder=self.responder)
+        session.warmup()
+        session.start()
+        return session
 
     async def _sender(self, ws, outbox):
         while True:

@@ -54,6 +54,21 @@ def init_session(cfg: AudioLLMConfig, batch: int = 1, kv_dtype=torch.float32,
     )
 
 
+def reset_audio_caches(cfg: AudioLLMConfig, caches: SessionCaches) -> SessionCaches:
+    """Fresh encoder/adapter caches of both identities in the session's dtype
+    and on its device; the LLM KV is kept (bin/inference.py:133-135)."""
+    b = caches.kv.length.shape[0]
+    dt = caches.enc_user.k_cache.dtype
+    dev = caches.kv.length.device
+    return SessionCaches(
+        enc_user=encoder_mod.init_state(cfg.encoder, b, dt, dev),
+        adp_user=adapter_mod.init_state(cfg.adapter, b, dt, dev),
+        enc_system=encoder_mod.init_state(cfg.encoder, b, dt, dev),
+        adp_system=adapter_mod.init_state(cfg.adapter, b, dt, dev),
+        kv=caches.kv,
+    )
+
+
 def init_params(cfg: AudioLLMConfig, seed: int = 0, device=None,
                 llm_dtype=torch.float32, quantize_llm: bool = False,
                 quant_bits: int = 8) -> dict:

@@ -104,6 +104,19 @@ def dequantize_cache(kv: KVCache, dtype=torch.bfloat16) -> KVCache:
     return KVCache(k=k, v=v, length=kv.length.clone())
 
 
+def copy_cache(kv: KVCache, out: Optional[KVCache] = None) -> KVCache:
+    """A copy of `kv` in new tensors, or written into `out` (same shapes and
+    dtypes) in place. `forward` and `roll_kv` advance a cache in place, so a
+    cache that must stay as it is (a role prefill that sessions restart
+    from) is copied before anything appends to it."""
+    if out is None:
+        return KVCache(*[None if t is None else t.clone() for t in kv])
+    for dst, src in zip(out, kv):
+        if dst is not None:
+            dst.copy_(src)
+    return out
+
+
 def init_layer_stack(cfg: LLMConfig, gen: torch.Generator, num_layers: int,
                      dtype=torch.bfloat16, device=None):
     """Stacked float decoder-layer params [num_layers, ...]."""

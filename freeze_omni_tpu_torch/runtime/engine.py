@@ -14,11 +14,14 @@ batches every session that decided to speak (dialog_ss) through one
 runtime/fastpath.first_response, from the assistant prefix to the first PCM,
 and `continue_segments` advances every continuing response by one batched
 text segment; both gather the sessions' KV rows, generate on the copy and
-scatter the advanced rows back. Sampling draws from a per-engine
-`torch.Generator` (or one the caller passes).
+scatter the advanced rows back; `respond` speaks for one session through a
+DuplexResponder on a copy of its row. Sampling draws from a generator the
+shared pipeline._Core hands out per call (or one the caller passes).
+`TTSPool` and `PipelinePool` keep the API of the reference's replica pools
+(bin/pool.py) over shared weights and one engine.
 
-Left out of the port for now: mesh sharding, buffer donation, session
-export/import, and `respond` with the DuplexResponder (the service slice).
+Left out of the port for now: mesh sharding, buffer donation and session
+export/import.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ import torch
 
 from ..config import SystemConfig
 from ..models import audio_llm, qwen2
+from ..pipeline import _Core
 from ..utils.device import resolve_device
-from ..utils.tokenizer import ByteTokenizer, ChatTemplate
 from .session import SessionStore
 
 IDENTITIES = ("user", "system")
@@ -45,41 +48,6 @@ class CapacityError(RuntimeError):
     def __init__(self, msg: str, active_sessions: Optional[int] = None):
         super().__init__(msg)
         self.active_sessions = active_sessions
-
-
-class _Core:
-    """Tokenizer, chat template, parameters and the cached prefix
-    embeddings and role prefills (the pieces of pipeline._Core the tick
-    needs)."""
-
-    def __init__(self, cfg: SystemConfig, params: Optional[dict], tokenizer,
-                 seed: int, llm_dtype, device: torch.device):
-        self.cfg = cfg
-        self.acfg = cfg.audio_llm
-        self.device = device
-        self.tokenizer = tokenizer or ByteTokenizer(cfg.audio_llm.llm.vocab_size)
-        self.chat = ChatTemplate(self.tokenizer)
-        if params is None:
-            params = audio_llm.init_params(self.acfg, seed, device,
-                                           llm_dtype=llm_dtype)
-        self.params = params
-        # chat-template prefix embeddings (audioLLM.py:245-251)
-        self.user_prefix_embeds = qwen2.embed_tokens(
-            params["llm"], self._ids(self.chat.user_prefix_ids))
-        self.system_prefix_embeds = qwen2.embed_tokens(
-            params["llm"], self._ids(self.chat.system_prefix_ids))
-
-    def _ids(self, ids) -> torch.Tensor:
-        return torch.tensor(ids, dtype=torch.int64, device=self.device)
-
-    def role_kv(self, role: str) -> qwen2.KVCache:
-        """Prefill the role prompt into a fresh batch-1 float cache whose
-        dtype follows the activation dtype embed_tokens emits."""
-        ids = self._ids(self.chat.role_prompt_ids(role))[None]
-        kv = qwen2.init_cache(self.acfg.llm, 1,
-                              dtype=self.user_prefix_embeds.dtype,
-                              device=self.device)
-        return audio_llm.prefill_tokens(self.params, self.acfg, ids, kv)
 
 
 class PendingTick:
@@ -144,8 +112,6 @@ class ServingEngine:
         self.store = SessionStore(cfg.audio_llm, cfg.serving.max_sessions,
                                   kv_dtype, cfg.serving.kv_quant_bits,
                                   self.device)
-        # response sampling (the JAX engine splits a PRNG key per call)
-        self.gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         # RLock: the callbacks fired inside a roll may re-enter the engine
         self._lock = threading.RLock()
         # pending chunk per (identity, slot): (fbank [1, T, 80], is_sl)
@@ -405,6 +371,21 @@ class ServingEngine:
         with self._lock:
             return self.store.gather_kv_many(slots + [slots[0]] * (B - n))
 
+    def respond(self, sid: str, responder) -> list:
+        """Speak for one session on its slot's KV context: gather a copy of
+        the row, run the DuplexResponder on it (text segments + StreamingTTS)
+        and scatter back the KV its commit rule left, the context up to the
+        last sentence it yielded. Returns [(sentence_text, pcm16 | None)]."""
+        self._maybe_roll_kv()  # headroom before appending a response
+        with self._lock:
+            slot = self.store.slot_of(sid)
+            kv = self.store.gather_kv(slot)
+        out = [(text, pcm16) for text, pcm16, _ in responder.respond(kv)]
+        with self._lock:
+            self.store.scatter_kv(slot, kv)
+            self._len_host = None  # growth unknown: refetched at the next check
+        return out
+
     def respond_fast(self, sid: str, tts_params: dict, n_text: int = 8,
                      gen: Optional[torch.Generator] = None):
         """First response of one session: (pcm24k [1, 1, n], text token ids)."""
@@ -441,10 +422,11 @@ class ServingEngine:
         with torch.no_grad():
             pcm, toks, _, _, n_valid, kv = fastpath.first_response(
                 self.core.params, tts_params, cfg.audio_llm, cfg.tts.decoder,
-                cfg.tts.codec, ids, kv, gen if gen is not None else self.gen,
-                cfg.sampling, n_text=n_text, n_codec=n_codec,
-                top_k=cfg.tts.top_k, eod_id=self.core.tokenizer.eod_id,
-                global_tokens=gt, penalty_window=cfg.tts.penalty_window_size,
+                cfg.tts.codec, ids, kv,
+                gen if gen is not None else self.core.next_key(), cfg.sampling,
+                n_text=n_text, n_codec=n_codec, top_k=cfg.tts.top_k,
+                eod_id=self.core.tokenizer.eod_id, global_tokens=gt,
+                penalty_window=cfg.tts.penalty_window_size,
                 penalty=cfg.tts.penalty)
         with self._lock:
             rows, kept_slots = self._still_current(pairs)
@@ -498,8 +480,8 @@ class ServingEngine:
         with torch.no_grad():
             toks, hiddens, done, kv = audio_llm.generate_segment(
                 self.core.params, self.cfg.audio_llm, tok0, kv,
-                gen if gen is not None else self.gen, self.cfg.sampling,
-                n_steps=n_steps, eod_id=self.core.tokenizer.eod_id)
+                gen if gen is not None else self.core.next_key(),
+                self.cfg.sampling, n_steps=n_steps, eod_id=self.core.tokenizer.eod_id)
         with self._lock:
             rows, kept_slots = self._still_current(pairs)
             self.store.scatter_kv_many(kept_slots, kv, rows=rows)
@@ -523,3 +505,65 @@ class ServingEngine:
                 seg = seg[: seg.index(eod) + 1]
             out[sid] = (seg, hid_np[i, : len(seg)], bool(done_np[i]))
         return out
+
+
+class TTSPool:
+    """API of the reference's TTSObjectPool (bin/pool.py:22-53: acquire the
+    first free object, an in_use flag) over shared TTS parameters: a pooled
+    object holds a StreamingTTS with its own sampling stream, not a model
+    copy."""
+
+    class _Handle:
+        def __init__(self, tts):
+            self.in_use = False
+            self.tts_proc = tts
+
+    def __init__(self, size: int, params: dict, cfg, seed: int = 0, device=None):
+        from ..tts import StreamingTTS
+
+        self.pool = [self._Handle(StreamingTTS(params, cfg, seed=seed + i,
+                                               device=device))
+                     for i in range(size)]
+
+    def acquire(self):
+        for obj in self.pool:
+            if not obj.in_use:
+                obj.in_use = True
+                return obj
+        raise RuntimeError("No available objects in the pool")
+
+    def release(self, obj) -> None:
+        obj.in_use = False
+
+    def print_info(self) -> None:
+        for i, o in enumerate(self.pool):
+            print(f"TTS Object {i} is in use: {o.in_use}")
+
+
+class PipelinePool:
+    """API of the reference's pipelineObjectPool (acquire the handle with the
+    fewest users, release decrements) over ONE ServingEngine: the pool's
+    semantics without its model copies."""
+
+    class _Handle:
+        def __init__(self, engine: ServingEngine, idx: int):
+            self.pipeline_proc = engine
+            self.user_count = 0
+            self.id = f"serving-engine-{idx}"
+
+    def __init__(self, size: int, cfg: SystemConfig, params=None, **kw):
+        engine = ServingEngine(cfg, params, **kw)
+        self.pool = [self._Handle(engine, i) for i in range(size)]
+
+    def acquire(self):
+        h = min(self.pool, key=lambda o: o.user_count)
+        h.user_count += 1
+        return h
+
+    def release(self, obj) -> None:
+        if obj.user_count > 0:
+            obj.user_count -= 1
+
+    def print_info(self) -> None:
+        for i, o in enumerate(self.pool):
+            print(f"Pipeline Object {i} user count: {o.user_count}")

@@ -15,7 +15,6 @@ back as system-identity audio.
 
 from __future__ import annotations
 
-import dataclasses
 import threading
 import time
 from typing import Dict, List, Optional
@@ -23,37 +22,18 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..config import SystemConfig
+from ..duplex.engine import IDENTITIES, Frontend, vad_stage
 from ..duplex.events import EventSink
-from ..duplex.ipu import IPUHandle
-from ..duplex.serializer import ContextSerializer
-from ..duplex.vad import make_vad
-from ..frontend.chunker import GatingChunker
-from ..utils.queues import PCMQueue
 from .engine import ServingEngine
 
-IDENTITIES = ("user", "system")
 
-
-class _SessionFrontend:
+class _SessionFrontend(Frontend):
     """Host-side per-session state (device caches live in the engine)."""
 
     def __init__(self, sid: str, cfg: SystemConfig, sink: EventSink,
                  user_ipu_outlets: Optional[List] = None):
+        super().__init__(cfg, sink, user_ipu_outlets)
         self.sid = sid
-        self.cfg = cfg
-        self.sink = sink
-        self.user_ipu_outlets = user_ipu_outlets or []
-        gating_cfg = cfg.duplex.gating
-        vad_cfg = dataclasses.replace(cfg.duplex.vad,
-                                      chunk_size=gating_cfg.samples_per_chunk)
-        self.pcm = {i: PCMQueue() for i in IDENTITIES}
-        self.resamplers: Dict[str, object] = {}  # lazy, per client rate
-        self.vad = {i: make_vad(vad_cfg, identity=i) for i in IDENTITIES}
-        self.gating = {i: GatingChunker(gating_cfg) for i in IDENTITIES}
-        self.serializer = ContextSerializer()
-        self.current_ipu: Dict[str, Optional[IPUHandle]] = {
-            i: None for i in IDENTITIES}
-        self.first_chunk_sent = {i: False for i in IDENTITIES}
         # in-flight multi-sentence response: {'last': int (token to continue
         # from), 'n': tokens generated so far, 'toks': sentence buffer,
         # 'hids': [[1,1,D] float32]} — None when not speaking
@@ -133,24 +113,7 @@ class DuplexService:
         self.engine.close_session(sid)
 
     def enqueue_audio_data(self, sid: str, identity: str, data: dict) -> None:
-        fe = self.sessions[sid]
-        want = self.cfg.duplex.vad.sample_rate
-        sr = data.get("sr", want)
-        audio = data["audio"]
-        if isinstance(audio, (bytes, bytearray)):
-            audio = np.frombuffer(bytes(audio), "<i2").astype(np.float32) \
-                / 32768.0
-        else:
-            audio = np.asarray(audio, np.float32)
-        if sr != want:
-            # arbitrary client rates stream through a per-identity resampler
-            # with no per-message boundary artifacts
-            rs = fe.resamplers.get(identity)
-            if rs is None or rs.orig_sr != sr:
-                from ..frontend.wav import StreamingResampler
-                rs = fe.resamplers[identity] = StreamingResampler(sr, want)
-            audio = rs.push(audio)
-        fe.pcm[identity].push(audio)
+        self.sessions[sid].push_pcm(identity, data)
 
     # ------------------------------------------------------------------
 
@@ -263,60 +226,23 @@ class DuplexService:
 
     def _vad_stage(self, fe: _SessionFrontend, identity: str,
                    chunk: np.ndarray) -> None:
-        ts = time.time()
-        ann = fe.vad[identity].predict({"audio": chunk, "time_stamp": ts})
-        fe.sink.emit("vad_state_update", {"identity": identity,
-                                          "prob": ann["prob"], "time_stamp": ts})
-        status = ann["status"]
-        if status == "ipu_sl":
-            handle = IPUHandle(identity, ts)
-            fe.current_ipu[identity] = handle
-            if identity == "user":
-                for outlet in fe.user_ipu_outlets:
-                    outlet(handle)
-                if fe.resp is not None or fe.tts_key is not None \
-                        or fe.tts_queue:
-                    # barge-in: user speech onset cancels the in-flight
-                    # response continuation (the reference interrupts the LLM
-                    # on user input — "LLM interrupted", BASELINE.md span);
-                    # bumping the generation drops queued sentences, and the
-                    # pooled synthesis job is cancelled outright
-                    fe.resp = None
-                    if self._tts is not None and fe.tts_key is not None:
-                        self._tts.cancel(fe.tts_key)
-                    fe.tts_key = None
-                    fe.tts_queue.clear()
-                    fe.resp_gen += 1
-                    fe.sink.emit("response_interrupted", {"time_stamp": ts})
-            handle.add_chunk(ann["audio"], ts)
-        elif status in ("ipu_cl", "ipu_el"):
-            handle = fe.current_ipu[identity]
-            if handle is not None:
-                handle.add_chunk(ann["audio"], ts)
-                if status == "ipu_el":
-                    handle.set_end_timestamp(ts)
-        if status is not None:
-            fe.sink.emit("vad_event", {
-                "identity": identity, "status": status,
-                "ipu_id": getattr(fe.current_ipu[identity], "id", None),
-                "time_stamp": ts})
+        vad_stage(fe, identity, chunk,
+                  on_user_onset=lambda ts: self._barge_in(fe, ts))
 
-        gated = fe.gating[identity].process_and_gate(
-            {"audio": ann["audio"], "status": status})
-        if gated is None:
+    def _barge_in(self, fe: _SessionFrontend, ts: float) -> None:
+        """A user speech onset cancels the session's response in flight (the
+        reference interrupts the LLM on user input, "LLM interrupted" in
+        BASELINE.md): bumping the generation drops queued sentences, and the
+        pooled synthesis job is cancelled outright."""
+        if fe.resp is None and fe.tts_key is None and not fe.tts_queue:
             return
-        replay = gated.get("feature_last_chunk", [])
-        if replay and gated["status"] == "ipu_sl":
-            seq = [(f, "ipu_sl" if i == 0 else "ipu_cl")
-                   for i, f in enumerate(replay)]
-            seq.append((gated["feature"], "ipu_cl"))
-        else:
-            seq = [(gated["feature"], gated["status"])]
-        for k, (f, st) in enumerate(seq):
-            fe.serializer.add_feature_chunk({
-                "time_stamp": ts + 1e-6 * k, "identity": identity,
-                "status": st, "feature": np.asarray(f, np.float32),
-                "ipu_id": getattr(fe.current_ipu[identity], "id", None)})
+        fe.resp = None
+        if self._tts is not None and fe.tts_key is not None:
+            self._tts.cancel(fe.tts_key)
+        fe.tts_key = None
+        fe.tts_queue.clear()
+        fe.resp_gen += 1
+        fe.sink.emit("response_interrupted", {"time_stamp": ts})
 
     def _decide(self, fe: _SessionFrontend, feat: dict, pred: dict) -> bool:
         """Returns True when the session should speak (the caller batches all

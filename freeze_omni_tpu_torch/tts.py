@@ -137,7 +137,9 @@ class StreamingTTS:
             codec_padding_size: Optional[int] = None) -> Iterator[np.ndarray]:
         """hidden: [1, T, idim] text-embedding frames; prefix: [1, P, idim]
         LLM hidden-state frames or None. Yields [1, 1, n] PCM segments
-        (llm2TTS.run, llm2tts.py:114-160)."""
+        (llm2TTS.run, llm2tts.py:114-160). The sentence ends at eos, at
+        cfg.max_tokens, or when the decoder cache is full; one whose
+        preamble fills the cache raises ValueError before any device work."""
         cfg = self.cfg
         dcfg = cfg.decoder
         top_k = top_k if top_k is not None else cfg.top_k
@@ -145,6 +147,17 @@ class StreamingTTS:
         padding = codec_padding_size or cfg.codec_padding_size
         up = cfg.codec.upsample_rate
 
+        # the preamble writes bos + the hidden frames + the prefix (when the
+        # decoder keeps prefix KV) into a cache of max_kv_len slots, the last
+        # of them scratch; each codec token takes one more slot, so the
+        # sentence ends at the cache as at its token budget (BatchedTTS's
+        # rule): a write past the cache would fault on the card
+        used = 1 + np.shape(hidden)[1] + (
+            np.shape(prefix)[1] if prefix is not None and dcfg.use_prefix_kv else 0)
+        limit = min(cfg.max_tokens, dcfg.max_kv_len - 1 - used)
+        if limit < 1:
+            raise ValueError(f"sentence needs {used} decoder KV slots before its "
+                             f"first codec token; the cache holds {dcfg.max_kv_len}")
         with torch.no_grad():
             hidden, h_mask = bucket_pad(hidden, self.BUCKET, self.device)
             if prefix is not None and dcfg.use_prefix_kv:
@@ -160,9 +173,9 @@ class StreamingTTS:
         done = False
         total = 0
 
-        while not done and total < cfg.max_tokens:
+        while not done and total < limit:
             n_steps = min(left + chunk + right - token_buf.shape[0],
-                          cfg.max_tokens - total)
+                          limit - total)
             with torch.no_grad():
                 toks, state = sd.decode_segment(
                     self.params["decoder"], dcfg, state, self.gen, n_steps=n_steps,

@@ -489,6 +489,36 @@ def test_decode_attention_plan_cases(cuda, which, case):
                                rtol=tol, atol=tol)
 
 
+SESSION_SHAPES = {   # B = 1: the per-session path's two K4 calls
+    "session_llm": (1, 28, 4, 128, 2048, BF16, BF16),     # text decode, 32 splits
+    "session_tts": (1, 14, 14, 64, 2048, F32, F32),       # StreamingTTS, 9 splits
+}
+
+
+@pytest.mark.parametrize("length", [0, 1, 31, 32, 33, 2047])
+@pytest.mark.parametrize("case", list(SESSION_SHAPES))
+def test_decode_attention_one_session(cuda, case, length):
+    """K4 at B = 1 with NaN past the length: one launch a call, two calls
+    bit-identical, a length-0 row zero, else within q's dtype's tolerance."""
+    B, H, Hkv, dk, S, q_dtype, kv_dtype = SESSION_SHAPES[case]
+    q, k, v, lens = _decode_inputs(B, H, Hkv, dk, S, q_dtype, kv_dtype, cuda,
+                                   seed=length, lengths=[length])
+    fn = att.decode_attention_blocked
+    before = fn.launches
+    out, out2 = fn(q, k, v, lens), fn(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2 and torch.equal(out, out2)
+    assert torch.isfinite(out.float()).all()
+    if length == 0:
+        assert (out == 0).all()
+        return
+    ref = att.decode_attention_reference(q, k, v, lens)
+    # bf16: one rounding of the output (2^-7 relative) and 1e-3, tight enough
+    # to catch a split left out (~1e-2 at length 2047)
+    atol, rtol = (1e-3, 2 ** -7) if q_dtype == BF16 else (TOL[q_dtype],) * 2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
 @pytest.mark.parametrize("which", ["decode_attention", "decode_attention_blocked"])
 @pytest.mark.parametrize("case", ["first_response", "short_rows", "llm_bf16"])
 def test_decode_attention_replayed_from_a_cuda_graph(cuda, which, case):

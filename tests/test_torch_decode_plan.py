@@ -18,14 +18,17 @@ WARPS, WARP_SLOTS = 4, 8      # a block's warps, and the slots each takes of a t
 STAGES = 3                    # sub-tiles in a warp's ring of copies
 # (B, H, Hkv, dk, S, cache dtype): the phase-7 pool (one speech-decoder
 # layer), the phase-9 pool (rows of 1521 slots), first_response, the LLM's
-# text decode at --kv_quant 0, an f32 cache under the LLM's heads, narrow
-# heads whose short rows have fewer tiles than the plan has splits, and the
-# tiny widths of the card tests
+# text decode at --kv_quant 0, the per-session path's B = 1 calls (the
+# LLM's bf16 text decode and StreamingTTS's speech decoder), an f32 cache
+# under the LLM's heads, narrow heads whose short rows have fewer tiles than
+# the plan has splits, and the tiny widths of the card tests
 SHAPES = {
     "pool": (8, 14, 14, 64, 465, torch.float32),
     "service_pool": (4, 14, 14, 64, 1521, torch.float32),
     "first_response": (8, 14, 14, 64, 2048, torch.float32),
     "llm_bf16": (8, 28, 4, 128, 2048, torch.bfloat16),
+    "session_llm": (1, 28, 4, 128, 2048, torch.bfloat16),
+    "session_tts": (1, 14, 14, 64, 2048, torch.float32),
     "llm_f32_cache": (6, 28, 4, 128, 300, torch.float32),
     "short_rows": (8, 2, 2, 64, 2048, torch.float32),
     "tiny": (3, 8, 2, 64, 100, torch.bfloat16),
@@ -173,6 +176,11 @@ def test_plan_at_the_serving_shapes():
     assert plan_of("llm_bf16").splits == 4
     assert plan_of("short_rows").splits == 8
     assert split_ranges(73, 8) == [(0, 32), (32, 64), (64, 73)]
+    # one session (B = 1): the LLM's 4 kv heads take 32 splits, a merge and
+    # 1 x 28 x 32 x 130 floats (466 KB) of the 4 MB workspace; the speech
+    # decoder's 14 heads take 9 splits
+    assert plan_of("session_llm") == (32, 32, 116480)
+    assert plan_of("session_tts") == (32, 9, 14 * 9 * 66)
     # a short S caps the splits at its tiles
     assert att.decode_plan(2, 14, 14, 64, 40).splits == 2
 

@@ -1,6 +1,6 @@
-"""The port's `bin/serve`: the engine-mode server over a real websocket on the
-CPU, the flagship preset's int4 branch at tiny widths, and the flags that
-wait for later work."""
+"""The port's `bin/serve`: the per-session server and the engine-mode server
+over a real websocket on the CPU, the flagship preset's int4 branch at tiny
+widths, and the flags that wait for later work."""
 
 import asyncio
 import base64
@@ -135,7 +135,6 @@ def test_tiny_preset_ignores_quant():
 
 
 @pytest.mark.parametrize("argv,item", [
-    ([], "D1"),
     (["--engine", "--config", "x.yaml"], "D3"),
     (["--engine", "--model_path", "ckpt"], "D2"),
     (["--engine", "--llm_path", "llm"], "D2"),
@@ -152,3 +151,93 @@ def test_tiny_preset_ignores_quant():
 def test_waiting_flags_exit_naming_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
         serve.Server(serve.get_args(["--preset", "tiny", "--device", "cpu", *argv]))
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--tp", "2"], "D9"),
+    (["--coordinator", "h:1"], "D9"),
+    (["--state_dir", "s"], "D5"),
+])
+def test_engine_only_flags_exit_without_engine(argv, item):
+    """As in the JAX server, these need --engine; they also wait for their
+    ROADMAP item."""
+    with pytest.raises(SystemExit, match=f"ROADMAP.md {item} .*, and it needs --engine"):
+        serve.Server(serve.get_args(["--preset", "tiny", "--device", "cpu", *argv]))
+
+
+def test_per_session_server_over_websocket():
+    """Without --engine each connection gets its own DuplexSession on the
+    shared pipeline: start_session, audio (VAD events and predictions
+    stream back), reset -> reset_done, stop (the session's worker ends)."""
+    websockets = pytest.importorskip("websockets")
+    port = _free_port()
+    server = serve.Server(serve.get_args(
+        ["--preset", "tiny", "--device", "cpu", "--port", str(port)]))
+    assert server.service is None and server.pipeline is not None
+    n = server.cfg.duplex.gating.samples_per_chunk
+    opened = []
+    open_session = server._open_session
+    server._open_session = lambda *a: opened.append(open_session(*a)) or opened[-1]
+
+    async def client():
+        deadline = time.time() + 30
+        while True:
+            try:
+                ws = await websockets.connect(f"ws://127.0.0.1:{port}",
+                                              open_timeout=10)
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                await asyncio.sleep(0.1)
+        events = []
+
+        async def until(pred, seconds=60):
+            end = time.time() + seconds
+            while time.time() < end:
+                try:
+                    msg = json.loads(await asyncio.wait_for(ws.recv(), 5))
+                except asyncio.TimeoutError:
+                    continue
+                events.append(msg)
+                if pred(events):
+                    return
+            raise AssertionError(f"timed out; got {[e['event'] for e in events]}")
+
+        async with ws:
+            await ws.send(json.dumps({"type": "start_session", "sid": "p1"}))
+            await until(lambda ev: ev[-1]["event"] == "session_ready")
+            speech = 0.5 * synth_speech(np.random.RandomState(7), 3 * n)
+            for chunk in (np.zeros(2 * n), speech, np.zeros(6 * n)):
+                await ws.send(json.dumps({"type": "audio", "identity": "user",
+                                          "pcm_b64": _b64(chunk), "sr": 16000}))
+            # the VAD stage runs ahead of the predictions
+            await until(lambda ev: any(e.get("status") == "ipu_el" for e in ev)
+                        and any(e["event"] == "dialog_state_update" for e in ev))
+            await ws.send(json.dumps({"type": "reset"}))
+            await until(lambda ev: ev[-1]["event"] == "reset_done")
+            await ws.send(json.dumps({"type": "stop"}))
+        return events
+
+    async def main():
+        task = asyncio.create_task(server.run())
+        try:
+            return await client()
+        finally:
+            task.cancel()
+            with pytest.raises(asyncio.CancelledError):
+                await task
+
+    events = asyncio.run(main())
+    names = [e["event"] for e in events]
+    statuses = [e.get("status") for e in events if e["event"] == "vad_event"]
+    assert "ipu_sl" in statuses and "ipu_el" in statuses, statuses
+    upd = [e for e in events if e["event"] == "dialog_state_update"]
+    assert upd and all(0.0 <= u["probs"]["state_1"] <= 1.0 for u in upd)
+    assert names.index("reset_done") > names.index("dialog_state_update")
+    (session,) = opened
+    deadline = time.time() + 10
+    while session._worker is not None and time.time() < deadline:
+        time.sleep(0.05)   # the handler releases the session on stop
+    assert session._worker is None
+    assert int(session.past_key_values.length[0]) == session._role_len

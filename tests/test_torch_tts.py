@@ -186,3 +186,40 @@ def test_a_special_codec_id_ends_the_sentence(tts):
     up = tcfg.codec.upsample_rate
     assert 0 < out.shape[-1] <= 3 * up
     np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+def test_streaming_tts_ends_a_sentence_at_its_decoder_cache(tts):
+    """A sentence whose codec tokens would outgrow the decoder cache ends
+    when the cache is full, as at a token budget of the slots left: the
+    same PCM as a roomy cache with that budget, shorter than the sentence
+    unbounded. (Writing past the cache faults: an index error on the CPU, a
+    device-side assert on the card.)"""
+    _, tcfg, _, tp = tts
+    rng = np.random.RandomState(3)   # runs to the 48-token budget unbounded
+    h, p = (rng.randn(1, t, tcfg.decoder.idim).astype(np.float32) for t in (6, 2))
+    used = 1 + 6 + 2   # bos + hidden frames + prefix
+    room = 20
+    tight = dataclasses.replace(tcfg, decoder=dataclasses.replace(
+        tcfg.decoder, max_kv_len=used + 1 + room))
+    out = np.concatenate(_run(StreamingTTS(tp, tight, seed=0, device="cpu"), h, p),
+                         axis=-1)
+    budget = dataclasses.replace(tcfg, max_tokens=room)
+    ref = np.concatenate(_run(StreamingTTS(tp, budget, seed=0, device="cpu"), h, p),
+                         axis=-1)
+    full = np.concatenate(_run(StreamingTTS(tp, tcfg, seed=0, device="cpu"), h, p),
+                          axis=-1)
+    assert np.isfinite(out).all() and out.shape == ref.shape
+    assert out.shape[-1] < full.shape[-1]
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+def test_streaming_tts_refuses_a_sentence_its_cache_cannot_start(tts):
+    """A preamble that leaves the cache no slot for a codec token is
+    refused on the host, before the preamble writes anything."""
+    _, tcfg, _, tp = tts
+    rng = np.random.RandomState(4)
+    h, p = (rng.randn(1, t, tcfg.decoder.idim).astype(np.float32) for t in (6, 2))
+    tight = dataclasses.replace(tcfg, decoder=dataclasses.replace(
+        tcfg.decoder, max_kv_len=1 + 6 + 2 + 1))
+    with pytest.raises(ValueError, match="decoder KV slots"):
+        next(StreamingTTS(tp, tight, seed=0, device="cpu").run(h, p))
