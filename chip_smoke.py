@@ -38,6 +38,8 @@ raises and the script exits nonzero without printing a result. Phases:
    and the speech decoder's shape B=8, H=Hkv=14, dk=64, S in {1265, 2048}
    in f32 with TF32 off (1e-4: f32 sums in another order), with lengths
    0, 1, 255, 256, 257 and S-1 among the rows, then K4's plan edges:
+   the tiny speech decoder's head dim 32 (4 heads, f32, S=256; phase 11)
+   and dk 32 with 16 query heads a kv head in bf16,
    first_response's 73..123 visible slots under one split and under 8
    splits (narrow heads: blocks past a row's tiles exit), the 32-slot tile
    edges under 4 splits, and the two mixed dtype pairs (bf16 q on an f32
@@ -160,7 +162,36 @@ raises and the script exits nonzero without printing a result. Phases:
    caller, a user chunk and a text-decode step, and the device's busy
    share of 4 profiled chunks (torch.profiler); then K1 (N = 1 with the
    lm_head, the chunks' N) and K4 (both B = 1 shapes, at the run's last
-   lengths) are timed as in phase 8.
+   lengths) are timed as in phase 8;
+11. checkpoints, the offline CLI and the eval harnesses (phase 10's server
+   freed first): (a) the committed trained tiny system, read by
+   utils/factory.load_native_system from freeze_omni_tpu_torch/assets/
+   tiny_s2s (chunks.json: each array taken from the JAX package's orbax
+   zstd chunks by its sha256, with libzstd) with TF32 off: bin/asr_eval.main (--char_level
+   --batch 8 --max_tokens 24) on asr_dev.tsv and bin/qa_eval.main (--batch
+   8 --max_tokens 12) on qa_dev.tsv, QUALITY.json's flags; CER must be <=
+   3.74 % and QA >= 93.75 % (QUALITY.json: 2.74 / 100.0); K4 must launch
+   (the text decode); then one batch of 8 ASR utterances through
+   batched_transcribe on the card and on the CPU (every differing
+   hypothesis printed) and the serial transcribe on 2; (b) the offline CLI,
+   offline_infer.run_inference on dev_wavs/qa_000.wav with greedy text
+   and speech sampling (decoder_topk 1), its text identical to the same call on the CPU, the PCM
+   finite, span_report printed; K4 timed as in phase 8 at the tiny
+   StreamingTTS's shape (head dim 32, 40 visible slots), beside its bound,
+   its plain version and scaled_dot_product_attention; (c) a
+   reference-format checkpoint at
+   Qwen2-7B width (audiollm/{train.yaml, final.pt, global_cmvn},
+   decoder/{model.json, final.pt}, codec/{model.json, final.pt} and an HF
+   dir of config.json + a bf16 model.safetensors from this script's minimal
+   writer; 2 LLM layers, the depth cut to stay in the run's limit; seeded
+   random weights) in a temporary directory, deleted after: loaded with
+   build_system_from_reference(quantize_llm_bits=8) onto the card (the LLM
+   config must be the HF config.json's, the q projection int8 on the card),
+   one run_inference turn, then bin/serve's Server(get_args(["--model_path",
+   ..., "--llm_path", ...])) and one DuplexSession on its pipeline: a reset,
+   then user speech until two dialog_state_update events. Launch counts
+   are zeroed before and read after; K1 and K4 must be > 0. Prints the load
+   time and the peak memory.
 
 The last lines: the nvidia-smi line, one {"kernels": [...]} JSON line and
 the device JSON line.
@@ -195,11 +226,13 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-def max_violation(out, ref, tol):
-    """max |out - ref| and whether every element is within atol + rtol*|ref|."""
+def max_violation(out, ref, tol, rtol=None):
+    """max |out - ref| and whether every element is within tol + rtol*|ref|
+    (rtol defaults to tol)."""
     out, ref = out.float(), ref.float()
     err = (out - ref).abs()
-    return float(err.max()), bool((err <= tol + tol * ref.abs()).all())
+    rtol = tol if rtol is None else rtol
+    return float(err.max()), bool((err <= tol + rtol * ref.abs()).all())
 
 
 def pct(a):
@@ -586,6 +619,10 @@ DECODE_CASES = (
      [0, 1, 31, 32, 33, 64, 309, 464]),
     ("bf16 q, f32 cache", 4, 28, 4, 128, 700, "bfloat16", "float32", [699, 0, 97, 1]),
     ("f32 q, bf16 cache", 4, 14, 14, 64, 700, "float32", "bfloat16", [699, 0, 97, 1]),
+    ("tiny speech decoder, dk 32", 8, 4, 4, 32, 256, "float32", "float32",
+     [0, 1, 31, 32, 33, 64, 200, 255]),
+    ("dk 32, 16 heads a kv head", 4, 16, 1, 32, 700, "bfloat16", "bfloat16",
+     [699, 0, 97, 1]),
 )
 # K4 at B = 1, the per-session path: (label, H, Hkv, dk, S, q/cache dtype)
 SESSION_DECODE = (("session LLM text decode", 28, 4, 128, 2048, "bfloat16"),
@@ -717,7 +754,10 @@ def phase_kernel_parity():
     dec_err = {"decode_attention": 0.0, "decode_attention_blocked": 0.0}
     for (label, B, H, Hkv, dk, S, q_dt, kv_dt, lengths) in DECODE_CASES:
         q_dtype, kv_dtype = getattr(torch, q_dt), getattr(torch, kv_dt)
-        dtol = 2e-2 if q_dtype == torch.bfloat16 else 1e-4
+        # bf16: one rounding of the output (2^-7 relative) and 1e-3; at
+        # length 699 a dropped split or a wrong score moves an output by
+        # ~1e-2, which a looser bound could pass
+        dtol, drtol = (1e-3, 2 ** -7) if q_dtype == torch.bfloat16 else (1e-4, 1e-4)
         q, k, v, length = decode_inputs(B, H, Hkv, dk, S, q_dtype, kv_dtype,
                                         seed=S + dk, lengths=lengths)
         ref = att.decode_attention_reference(q, k, v, length)
@@ -737,11 +777,11 @@ def phase_kernel_parity():
             if not torch.isfinite(out.float()).all() or (out[~valid] != 0).any():
                 raise AssertionError(f"{name} wrote non-finite values or a "
                                      f"nonzero masked row ({label})")
-            err, ok = max_violation(out[valid], ref[valid], dtol)
+            err, ok = max_violation(out[valid], ref[valid], dtol, drtol)
             dec_err[name] = max(dec_err[name], err)
             log(f"[parity] {name} {label} B={B} H={H} Hkv={Hkv} dk={dk} S={S} "
                 f"{q_dt} q, {kv_dt} cache, K4 splits {splits}: max_abs_err "
-                f"{err:.3e} (tol {dtol}) on {int(valid.sum())} valid rows, "
+                f"{err:.3e} (atol {dtol}, rtol {drtol:.4g}) on {int(valid.sum())} valid rows, "
                 f"lengths {length.tolist()}; masked rows zero; two calls "
                 f"bit-identical")
             if not ok:
@@ -754,8 +794,7 @@ def phase_kernel_parity():
     fn = att.decode_attention_blocked
     for (label, H, Hkv, dk, S, dt) in SESSION_DECODE:
         dtype = getattr(torch, dt)
-        # tighter than the batched cases' bf16 2e-2: a split left out at
-        # length 2047 moves an output by ~1e-2, which 2e-2 would pass
+        # a split left out at length 2047 moves an output by ~1e-2
         dtol = 1e-3 if dtype == torch.bfloat16 else 1e-4
         errs = []
         for n in SESSION_LENGTHS:
@@ -2293,6 +2332,560 @@ def phase_session_kernel_times(sess, kernels, smi):
             entry["per_session_calls"] = sess["k4_calls"]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: checkpoints, the offline CLI and the eval harnesses
+# ---------------------------------------------------------------------------
+
+TINY_COPY = os.path.join("freeze_omni_tpu_torch", "assets", "tiny_s2s")
+TINY_DATA = os.path.join("freeze_omni_tpu", "assets", "tiny_s2s")
+CER_MAX, QA_MIN = 3.74, 93.75   # QUALITY.json's 2.74 plus one point; 15 of 16
+REFERENCE_LAYERS = 2            # the 7B-width reference checkpoint's depth
+# K4's timed shape for the tiny StreamingTTS: slots visible near the end of
+# the offline turn's sentence (bos, ~16 text frames, ~12 hidden frames, ~10
+# codec tokens)
+TINY_TTS_VISIBLE = 40
+
+_ST_DTYPES = {"torch.float32": "F32", "torch.bfloat16": "BF16",
+              "torch.float16": "F16", "torch.int8": "I8", "torch.uint8": "U8",
+              "torch.int32": "I32", "torch.int64": "I64"}
+
+
+def write_safetensors(path, tensors):
+    """A minimal safetensors writer: the 8-byte little-endian header length,
+    the JSON header (padded with spaces to 8 bytes), then each tensor's raw
+    bytes in order (the host is little-endian)."""
+    import torch
+
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPES[str(t.dtype)], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                    .numpy().data)
+
+
+def _unstack(tree, i):
+    return {k: _unstack(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _ref_linear(sd, name, p):
+    sd[f"{name}.weight"] = p["w"].T.contiguous()   # ours [in, out] -> [out, in]
+    if "b" in p:
+        sd[f"{name}.bias"] = p["b"]
+
+
+def _ref_norm(sd, name, p):
+    names = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+             "var": "running_var"}
+    for k, v in p.items():
+        sd[f"{name}.{names[k]}"] = v
+
+
+def _ref_conv(sd, name, p):
+    sd[f"{name}.weight"] = p["w"]
+    if "b" in p:
+        sd[f"{name}.bias"] = p["b"]
+
+
+def _ref_llama(sd, name, p):
+    _ref_norm(sd, f"{name}.input_layernorm", p["ln1"])
+    _ref_norm(sd, f"{name}.post_attention_layernorm", p["ln2"])
+    for ours, theirs in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                         ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
+                         ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
+                         ("down", "mlp.down_proj")):
+        _ref_linear(sd, f"{name}.{theirs}", p[ours])
+
+
+def reference_state_dicts(params, tts, num_blocks, num_llm_layers):
+    """The port's trees under the reference's names (the inverse of
+    utils/checkpoint.py's converters, for the weights the port draws):
+    (audiollm final.pt, HF Qwen2 state dict, decoder final.pt, codec
+    final.pt's {generator, quantizer})."""
+    am = {}
+    for who in ("user", "system"):
+        p, pre = params[f"encoder_{who}"], f"encoder_{who}."
+        am[f"{pre}global_cmvn.mean"] = p["cmvn"]["mean"]
+        am[f"{pre}global_cmvn.istd"] = p["cmvn"]["istd"]
+        sub = f"{pre}enc.0.core"
+        _ref_conv(am, f"{sub}.conv.0", p["sub"]["conv1"])
+        _ref_conv(am, f"{sub}.conv.2", p["sub"]["conv2"])
+        _ref_linear(am, f"{sub}.out.0", p["sub"]["out"])
+        _ref_linear(am, f"{pre}enc.1.embed.0", p["embed"]["lin"])
+        _ref_norm(am, f"{pre}enc.1.embed.1", p["embed"]["ln"])
+        _ref_norm(am, f"{pre}enc.1.after_norm", p["after_norm"])
+        for i in range(num_blocks):
+            blk, b = _unstack(p["blocks"], i), f"{pre}enc.1.encoders.{i}"
+            _ref_norm(am, f"{b}.norm1", blk["ln1"])
+            _ref_norm(am, f"{b}.norm2", blk["ln2"])
+            for ours, theirs in (("q", "linear_q"), ("k", "linear_k"),
+                                 ("v", "linear_v"), ("o", "linear_out"),
+                                 ("pos", "linear_pos")):
+                _ref_linear(am, f"{b}.self_attn.{theirs}", blk[ours])
+            am[f"{b}.self_attn.pos_bias_u"] = blk["bias_u"]
+            am[f"{b}.self_attn.pos_bias_v"] = blk["bias_v"]
+            _ref_linear(am, f"{b}.feed_forward.w_1", blk["ffn1"])
+            _ref_linear(am, f"{b}.feed_forward.w_2", blk["ffn2"])
+        a, pre = params[f"adapter_{who}"], f"adpter_{who}."
+        _ref_conv(am, f"{pre}conv1d1", a["conv1"])
+        _ref_norm(am, f"{pre}bn1", a["bn1"])
+        _ref_conv(am, f"{pre}conv1d2", a["conv2"])
+        _ref_norm(am, f"{pre}bn2", a["bn2"])
+        _ref_linear(am, f"{pre}project", a["proj"])
+    _ref_linear(am, "predictor_head", params["predictor"])
+    am["task_embeddings.weight"] = params["task_embeddings"]
+
+    llm = params["llm"]
+    hf = {"model.embed_tokens.weight": llm["embed"]["w"],
+          "model.norm.weight": llm["final_norm"]["scale"],
+          "lm_head.weight": llm["lm_head"]["w"].T.contiguous()}
+    for i in range(num_llm_layers):
+        _ref_llama(hf, f"model.layers.{i}", _unstack(llm["layers"], i))
+
+    dec = tts["decoder"]
+    ds = {"embedding.weight": dec["embedding"]["w"],
+          "norm.weight": dec["final_norm"]["scale"]}
+    _ref_linear(ds, "out_fnn", dec["out"])
+    for group, name in (("pre_nn", "layers_pre_nn"), ("layers", "layers"),
+                        ("prefix", "layers_prefix")):
+        if group in dec:
+            for i in range(dec[group]["ln1"]["scale"].shape[0]):
+                _ref_llama(ds, f"{name}.{i}", _unstack(dec[group], i))
+
+    g = tts["codec"]["generator"]
+    gen = {}
+    _ref_conv(gen, "conv_pre", g["conv_pre"])
+    _ref_conv(gen, "conv_post", g["conv_post"])
+    for i, up in enumerate(g["ups"]):
+        _ref_conv(gen, f"ups.{i}", up)
+    for i, rb in enumerate(g["resblocks"]):
+        for grp in ("convs1", "convs2"):
+            for j, c in enumerate(rb[grp]):
+                _ref_conv(gen, f"resblocks.{i}.{grp}.{j}", c)
+    q = tts["codec"]["quantizer"]
+    quant = {}
+    for layer, base in zip(q["codebooks"], ("quantizer_modules", "quantizer_modules2",
+                                            "quantizer_modules3", "quantizer_modules4")):
+        for gi in range(layer.shape[0]):
+            quant[f"{base}.{gi}.embedding.weight"] = layer[gi]
+    for gi in range(q["gst"].shape[0]):
+        quant[f"quantizer_modules_globaltokens.{gi}.embedding.weight"] = q["gst"][gi]
+    return am, hf, ds, {"generator": gen, "quantizer": quant}
+
+
+def write_reference_checkpoint(root, cfg, seed, device="cuda",
+                               llm_dtype=None):
+    """A reference-format checkpoint of `cfg` with seeded random weights (the
+    port's own initializers, drawn on `device`), as the reference ships one:
+    `<root>/ckpt/audiollm/{train.yaml, final.pt, global_cmvn}`,
+    `<root>/ckpt/decoder/{model.json, final.pt}`,
+    `<root>/ckpt/codec/{model.json, final.pt}` and the HF Qwen2 dir
+    `<root>/llm/{config.json, model.safetensors}` (the LLM in `llm_dtype`,
+    bf16 by default, as Qwen2-7B-Instruct ships). train.yaml is written as
+    JSON, which is YAML. Returns (model_path, llm_path)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch.models import audio_llm
+    from freeze_omni_tpu_torch.models import codec as codec_mod
+    from freeze_omni_tpu_torch.models import speech_decoder as sd_mod
+
+    llm_dtype = llm_dtype or torch.bfloat16
+    acfg, enc, llm = cfg.audio_llm, cfg.audio_llm.encoder, cfg.audio_llm.llm
+    params = audio_llm.init_params(acfg, seed=seed, device=device,
+                                   llm_dtype=llm_dtype)
+    # init_params draws an identity CMVN; the stats file below gives another
+    rng = np.random.RandomState(seed)
+    frames = rng.randn(500, enc.input_dim) * 2 + 1
+    mean = frames.mean(0)
+    istd = 1.0 / np.sqrt(np.maximum((frames ** 2).mean(0) - mean ** 2, 1e-20))
+    for who in ("encoder_user", "encoder_system"):
+        params[who]["cmvn"] = {
+            "mean": torch.tensor(mean, dtype=torch.float32, device=device),
+            "istd": torch.tensor(istd, dtype=torch.float32, device=device)}
+    g = torch.Generator(device=device).manual_seed(seed + 7)
+    tts = {"decoder": sd_mod.init_params(cfg.tts.decoder, g, device=device),
+           "codec": codec_mod.init_params(cfg.tts.codec, g, device=device)}
+    am, hf, ds, cs = reference_state_dicts(params, tts, enc.num_blocks,
+                                           llm.num_layers)
+    del params, tts
+    cpu = lambda d: {k: (cpu(v) if isinstance(v, dict) else v.cpu())  # noqa: E731
+                     for k, v in d.items()}
+
+    model_path, llm_path = os.path.join(root, "ckpt"), os.path.join(root, "llm")
+    for sub in ("audiollm", "decoder", "codec"):
+        os.makedirs(os.path.join(model_path, sub))
+    os.makedirs(llm_path)
+    torch.save(cpu(am), os.path.join(model_path, "audiollm", "final.pt"))
+    train = {
+        "input_dim": enc.input_dim, "is_json_cmvn": True,
+        "encoder_conf": {
+            "overview_conf": {"encoder-layer-config": "subsampling-transformer",
+                              "encoder-input-dim": enc.input_dim,
+                              "encoder-output-dim": enc.output_dim},
+            "para_conf": {
+                "subsampling": {"subsampling-rate": enc.subsampling_rate,
+                                "subsampling-input-dim": enc.input_dim,
+                                "subsampling-output-dim": enc.attention_dim},
+                "transformer": {
+                    "transformer-attention-dim": enc.attention_dim,
+                    "transformer-attention-heads": enc.attention_heads,
+                    "transformer-linear-units": enc.linear_units,
+                    "transformer-num-blocks": enc.num_blocks,
+                    "transformer-chunk_size": enc.chunk_size,
+                    "transformer-left_chunks": enc.left_chunks,
+                    "transformer-pos-enc-class": enc.pos_enc,
+                    "transformer-input-dim": enc.attention_dim,
+                    "transformer-output-dim": enc.output_dim}}},
+        "model_conf": {"enc_out_dim": acfg.adapter.enc_out_dim,
+                       "llm_embed_dim": llm.hidden,
+                       "kernel_size": acfg.adapter.kernel_size,
+                       "activation_func": acfg.adapter.activation,
+                       "norm": acfg.adapter.norm, "adpter_type": "subsampling",
+                       "llm_head_num": llm.num_heads,
+                       "num_key_value_heads": llm.num_kv_heads,
+                       "predict_usr_state": acfg.num_states}}
+    with open(os.path.join(model_path, "audiollm", "train.yaml"), "w") as f:
+        json.dump(train, f, indent=1)
+    with open(os.path.join(model_path, "audiollm", "global_cmvn"), "w") as f:
+        json.dump({"mean_stat": frames.sum(0).tolist(),
+                   "var_stat": (frames ** 2).sum(0).tolist(),
+                   "frame_num": len(frames)}, f)
+    dcfg = cfg.tts.decoder
+    torch.save(cpu(ds), os.path.join(model_path, "decoder", "final.pt"))
+    with open(os.path.join(model_path, "decoder", "model.json"), "w") as f:
+        json.dump([dcfg.idim, dcfg.codec_vocab, {
+            "transformer_attention_dim": dcfg.hidden,
+            "transformer_num_blocks": dcfg.num_layers,
+            "transformer_attention_heads": dcfg.num_heads,
+            "transformer_linear_units": dcfg.ffn,
+            "kv_cache_prefix_finetune": int(dcfg.use_prefix_kv)}], f)
+    torch.save(cpu(cs), os.path.join(model_path, "codec", "final.pt"))
+    with open(os.path.join(model_path, "codec", "model.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg.tts.codec), f)
+    with open(os.path.join(llm_path, "config.json"), "w") as f:
+        json.dump({"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+                   "hidden_size": llm.hidden, "intermediate_size": llm.ffn,
+                   "num_attention_heads": llm.num_heads,
+                   "num_hidden_layers": llm.num_layers,
+                   "num_key_value_heads": llm.num_kv_heads,
+                   "vocab_size": llm.vocab_size, "rms_norm_eps": llm.rms_eps,
+                   "rope_theta": llm.rope_theta,
+                   "tie_word_embeddings": llm.tie_embeddings,
+                   "torch_dtype": str(llm_dtype).replace("torch.", "")}, f)
+    write_safetensors(os.path.join(llm_path, "model.safetensors"), hf)
+    return model_path, llm_path
+
+
+def _abs_manifest(src, out_dir):
+    """A copy of a committed manifest whose wav paths are absolute (they are
+    written relative to the repository's root)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    dst = os.path.join(out_dir, os.path.basename(src))
+    with open(os.path.join(root, src)) as f, open(dst, "w") as g:
+        for line in f:
+            if line.strip():
+                path, rest = line.rstrip("\n").split("\t", 1)
+                g.write(f"{os.path.join(root, path)}\t{rest}\n")
+    return dst
+
+
+def _harness(main_fn, argv):
+    """One eval harness's main on the card: (its result, wall seconds). The
+    hypotheses go to stderr, the JSON line to stdout."""
+    import torch
+
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        result = main_fn(argv)
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t
+
+
+def phase_trained_tiny(smi):
+    """11a and 11b: the committed trained tiny system, read through the
+    port's chunk index, scored on the card by the eval harnesses; one batch of 8 ASR
+    utterances card against CPU; the serial stage machine on 2; the offline
+    CLI's one turn, its text held to the CPU's. TF32 off, as in a parity
+    phase."""
+    import argparse
+    import dataclasses
+    import functools
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch.bin import asr_eval, offline_infer, qa_eval
+    from freeze_omni_tpu_torch.frontend.chunker import OfflineChunker
+    from freeze_omni_tpu_torch.pipeline import InferencePipeline
+    from freeze_omni_tpu_torch.utils.factory import load_native_system
+    from freeze_omni_tpu_torch.utils.logging import reset_spans
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = os.path.dirname(os.path.abspath(__file__))
+    copy = os.path.join(root, TINY_COPY)
+    with open(os.path.join(root, TINY_DATA, "QUALITY.json")) as f:
+        quality = json.load(f)
+    with tempfile.TemporaryDirectory(prefix="tiny_eval_") as tmp:
+        asr_tsv = _abs_manifest(os.path.join(TINY_DATA, "asr_dev.tsv"), tmp)
+        qa_tsv = _abs_manifest(os.path.join(TINY_DATA, "qa_dev.tsv"), tmp)
+        zero_launches()
+        asr, asr_s = _harness(asr_eval.main, [
+            "--model_path", copy, "--manifest", asr_tsv, "--char_level",
+            "--batch", "8", "--max_tokens", "24"])
+        qa, qa_s = _harness(qa_eval.main, [
+            "--model_path", copy, "--manifest", qa_tsv, "--batch", "8",
+            "--max_tokens", "12"])
+        launches = read_launches()   # counted on through 11b
+        with open(asr_tsv) as f:
+            rows = [line.rstrip("\n").split("\t", 1) for line in f][:8]
+    log(f"[tiny-eval] ({smi}) the trained tiny system from {TINY_COPY}, TF32 "
+        f"off: ASR CER {asr['value']:.2f} % on {asr['n_utts']} utterances "
+        f"(QUALITY.json {quality['asr_cer_pct']:.2f}; bound {CER_MAX}) in "
+        f"{asr_s:.2f} s wall; QA accuracy {qa['value']:.2f} % on {qa['n_utts']} "
+        f"(QUALITY.json {quality['qa_accuracy_pct']:.2f}; bound {QA_MIN}; "
+        f"exact match {qa['detail']['exact_match']:.2f}, F1 "
+        f"{qa['detail']['f1']:.2f}) in {qa_s:.2f} s wall; launches {launches}")
+    if asr["n_utts"] != 24 or asr["value"] > CER_MAX:
+        raise AssertionError(f"card ASR {asr} (CER bound {CER_MAX})")
+    if qa["n_utts"] != 16 or qa["value"] < QA_MIN:
+        raise AssertionError(f"card QA {qa} (accuracy bound {QA_MIN})")
+    if launches["decode_attention_blocked"] == 0:
+        raise AssertionError("the tiny system's text decode launched no K4")
+
+    sides = (("card", "cuda"), ("cpu", "cpu"))
+    pipes, tts = {}, {}
+    for side, dev in sides:
+        cfg, params, tts[side], tok = load_native_system(copy, device=dev)
+        cfg = dataclasses.replace(
+            cfg, sampling=dataclasses.replace(cfg.sampling, top_k=1),
+            tts=dataclasses.replace(cfg.tts, top_k=1))
+        pipes[side] = InferencePipeline(cfg, params=params, tokenizer=tok,
+                                        device=dev)
+    wavs = [asr_eval.load_wav(p) for p, _ in rows]
+    hyps = {side: asr_eval.batched_transcribe(pl, cfg, wavs, 24)
+            for side, pl in pipes.items()}
+    differ = [(ref, hyps["card"][i], hyps["cpu"][i])
+              for i, (_, ref) in enumerate(rows)
+              if hyps["card"][i] != hyps["cpu"][i]]
+    serial = {side: [asr_eval.transcribe(pl, OfflineChunker(cfg.chunker), w, 24)
+                     for w in wavs[:2]] for side, pl in pipes.items()}
+    log(f"[tiny-eval] one batch of 8 ASR utterances, card vs cpu: "
+        f"{len(differ)} of 8 hypotheses differ"
+        + "".join(f"; ref {r!r}: card {c!r}, cpu {h!r}" for r, c, h in differ)
+        + f"; the serial stage machine on 2: card {serial['card']}, cpu "
+        f"{serial['cpu']} ({sum(a != b for a, b in zip(*serial.values()))} differ)")
+
+    text, pcm = {}, {}
+    # greedy speech too: synthesize_sentence's own decoder_topk (2, as the
+    # reference's) overrides cfg.tts.top_k
+    synthesize = offline_infer.synthesize_sentence
+    offline_infer.synthesize_sentence = functools.partial(synthesize,
+                                                          decoder_topk=1)
+    with tempfile.TemporaryDirectory(prefix="offline_") as tmp:
+        for side, dev in sides:
+            args = argparse.Namespace(
+                input_wav=os.path.join(root, TINY_DATA, "dev_wavs", "qa_000.wav"),
+                output_wav=os.path.join(tmp, f"{side}.wav"), max_tokens=24,
+                seed=0, model_path=None, voice_wav=None, device=dev)
+            reset_spans()
+            before = read_launches()
+            t = time.perf_counter()
+            text[side], pcm[side] = offline_infer.run_inference(
+                pipes[side].cfg, args, pipeline=pipes[side], tts_params=tts[side])
+            seconds = time.perf_counter() - t
+            after = read_launches()
+            log(f"[offline] ({smi}) {side}: text {text[side]!r}, "
+                f"{pcm[side].shape[0]} samples at 24 kHz in {seconds:.2f} s wall; "
+                f"launches {({k: after[k] - before[k] for k in after})}")
+    offline_infer.synthesize_sentence = synthesize
+    if text["card"] != text["cpu"] or not text["card"].strip():
+        raise AssertionError(f"offline text: card {text['card']!r}, cpu "
+                             f"{text['cpu']!r}")
+    if not (np.isfinite(pcm["card"]).all() and pcm["card"].shape[0] > 1):
+        raise AssertionError("the offline CLI's PCM is empty or not finite")
+    launches = read_launches()
+    log(f"[tiny-eval] launches in 11a and 11b: {launches}")
+    if launches["decode_attention_blocked"] == 0:
+        raise AssertionError("11a/11b launched no K4")
+
+    # K4 at the tiny speech decoder's shape (head dim 32), as StreamingTTS
+    # calls it in the offline turn (B = 1, 4 heads, its 256-slot cache)
+    from freeze_omni_tpu_torch.ops import attention as att
+
+    dcfg = pipes["card"].cfg.tts.decoder
+    H, dk, S = dcfg.num_heads, dcfg.hidden // dcfg.num_heads, dcfg.max_kv_len
+    g = torch.Generator(device="cuda").manual_seed(23)
+    k = torch.randn((1, S, H, dk), generator=g, device="cuda")
+    v = torch.randn((1, S, H, dk), generator=g, device="cuda")
+    length = torch.tensor([TINY_TTS_VISIBLE], dtype=torch.int32, device="cuda")
+    k4 = decode_time(att.decode_attention_blocked, k, v, length, H, g)
+    k4["splits"] = att.decode_plan(1, H, H, dk, S).splits
+    k4["length"] = TINY_TTS_VISIBLE
+    log_decode_time("decode_attention_blocked", f"tiny StreamingTTS B=1 S={S} "
+                    f"H={H} Hkv={H} dk={dk} f32, {TINY_TTS_VISIBLE} visible, "
+                    f"{k4['splits']} splits", k4, smi)
+    torch.backends.cudnn.allow_tf32 = True   # serving default
+    return {"cer": asr["value"], "qa": qa["value"], "differ": len(differ),
+            "launches": launches, "k4_tiny_tts": k4}
+
+
+def phase_reference_checkpoint(smi):
+    """11c: a reference-format checkpoint at Qwen2-7B width (2 LLM layers,
+    seeded random weights) written to a temporary directory, loaded with
+    build_system_from_reference(quantize_llm_bits=8) onto the card, one
+    offline turn, then served by bin/serve's Server (--model_path,
+    --llm_path) with one DuplexSession answering a reset and user chunks."""
+    import argparse
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch.bin import offline_infer
+    from freeze_omni_tpu_torch.bin.serve import Server, get_args
+    from freeze_omni_tpu_torch.config import flagship_system
+    from freeze_omni_tpu_torch.duplex.engine import DuplexSession
+    from freeze_omni_tpu_torch.duplex.events import EventSink
+    from freeze_omni_tpu_torch.pipeline import InferencePipeline
+    from freeze_omni_tpu_torch.utils.factory import build_system_from_reference
+    from freeze_omni_tpu_torch.utils.logging import reset_spans
+
+    base = flagship_system()
+    cfg = dataclasses.replace(base, audio_llm=dataclasses.replace(
+        base.audio_llm, llm=dataclasses.replace(base.audio_llm.llm,
+                                                num_layers=REFERENCE_LAYERS)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="ref7b_")
+    try:
+        du = shutil.disk_usage(tmp)
+        log(f"[reference] {tmp}: {du.free / 2**30:.1f} GiB free of "
+            f"{du.total / 2**30:.1f} GiB; depth cut to {REFERENCE_LAYERS} LLM "
+            f"layers (Qwen2-7B widths) so the phase stays in the run's limit")
+        t = time.perf_counter()
+        model_path, llm_path = write_reference_checkpoint(tmp, cfg, seed=11)
+        gc.collect()
+        torch.cuda.empty_cache()
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(tmp) for f in fs)
+        log(f"[reference] wrote {size / 1e9:.3f} GB in "
+            f"{time.perf_counter() - t:.2f} s (model.safetensors "
+            f"{os.path.getsize(os.path.join(llm_path, 'model.safetensors')) / 1e9:.3f} GB, bf16)")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t = time.perf_counter()
+        rcfg, params, tts, tok = build_system_from_reference(
+            model_path, llm_path, quantize_llm_bits=8, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        llm = rcfg.audio_llm.llm
+        shape = lambda c: (c.num_layers, c.vocab_size, c.hidden,  # noqa: E731
+                           c.num_heads, c.num_kv_heads, c.ffn)
+        if shape(llm) != shape(cfg.audio_llm.llm):
+            raise AssertionError(f"the loaded LLM config {shape(llm)} is not "
+                                 f"the HF config.json's {shape(cfg.audio_llm.llm)}")
+        wq = params["llm"]["layers"]["q"]["w_q"]
+        if wq.dtype != torch.int8 or wq.device.type != "cuda" \
+                or not wq.is_contiguous():
+            raise AssertionError(f"the loaded q projection is {wq.dtype} on "
+                                 f"{wq.device}")
+        log(f"[reference] ({smi}) build_system_from_reference(quantize_llm_bits"
+            f"=8) in {load_s:.2f} s (host read + convert + int8 quantization + "
+            f"copy to the card); LLM config from the HF config.json: "
+            f"{REFERENCE_LAYERS} layers, vocab {llm.vocab_size}, hidden "
+            f"{llm.hidden}, heads {llm.num_heads}/{llm.num_kv_heads}, ffn "
+            f"{llm.ffn}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        pipeline = InferencePipeline(rcfg, params=params, tokenizer=tok,
+                                     device="cuda")
+        args = argparse.Namespace(
+            input_wav=os.path.join(root, TINY_DATA, "dev_wavs", "qa_000.wav"),
+            output_wav=os.path.join(tmp, "out.wav"), max_tokens=16, seed=0,
+            model_path=None, voice_wav=None, device="cuda")
+        reset_spans()
+        t = time.perf_counter()
+        text, pcm = offline_infer.run_inference(rcfg, args, pipeline=pipeline,
+                                                tts_params=tts)
+        infer_s = time.perf_counter() - t
+        infer_launches = read_launches()
+        log(f"[reference] ({smi}) run_inference one turn in {infer_s:.2f} s: text "
+            f"{text!r} (random weights: ids >= 256 decode to nothing), "
+            f"{pcm.shape[0]} samples; launches {infer_launches}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del pipeline, params, tts
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t = time.perf_counter()
+        server = Server(get_args(["--model_path", model_path, "--llm_path",
+                                  llm_path]))
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+        if server.service is not None or \
+                server.cfg.audio_llm.llm.num_layers != REFERENCE_LAYERS or \
+                "w_q" not in server.pipeline.core.params["llm"]["layers"]["q"]:
+            raise AssertionError("the server did not serve the checkpoint's "
+                                 "int8 LLM on the per-session path")
+        sink = EventSink()
+        session = DuplexSession(server.pipeline, server.cfg, sink=sink, sid="ref")
+        session.warmup()
+        session.reset_context()
+        n = server.cfg.duplex.gating.samples_per_chunk
+        speech = 0.5 * speech_surrogate(np.random.RandomState(11), 12 * n)
+        updates = []
+        for i in range(12):
+            session.enqueue_audio_data("user", {"audio": speech[i * n:(i + 1) * n],
+                                                "enc": "f32"})
+            while session.pump():
+                pass
+            updates = sink.events_of("dialog_state_update")
+            if i >= 1 and len(updates) >= 2:
+                break
+        torch.cuda.synchronize()
+        serve_launches = read_launches()
+        probs = [u["probs"] for u in updates]
+        log(f"[reference] ({smi}) Server(--model_path, --llm_path) built in "
+            f"{serve_s:.2f} s; one DuplexSession: reset, then {i + 1} user chunks "
+            f"until 2 dialog_state_update events: {probs}; launches "
+            f"{serve_launches}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if len(updates) < 2 or not all(np.isfinite([p["state_1"], p["state_2"]]).all()
+                                       for p in probs):
+            raise AssertionError(f"the served session answered {probs}")
+        if sink.events_of("error"):
+            raise AssertionError(f"session errors: {sink.events_of('error')}")
+        session.release()
+        del server, session
+        launches = {k: infer_launches[k] + serve_launches[k] for k in infer_launches}
+        log(f"[reference] launches in phase 11c: K1 quant_matmul "
+            f"{launches['quant_matmul']}, K4 decode_attention_blocked "
+            f"{launches['decode_attention_blocked']}, K2 {launches['prefill_quant']}, "
+            f"K3 {launches['decode_attention']}, K5 {launches['quant_matmul4']}")
+        if launches["quant_matmul"] == 0 or launches["decode_attention_blocked"] == 0:
+            raise AssertionError(f"K1 and K4 must launch in 11c: {launches}")
+        return {"load_s": load_s, "launches": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import gc
@@ -2304,6 +2897,10 @@ def main() -> int:
               "runs on the card", file=sys.stderr)
         return 2
     import freeze_omni_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    # phase 11 reads local HF directories only
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
 
     name, count, smi = phase_device()
     phase_build()
@@ -2339,6 +2936,21 @@ def main() -> int:
     sess = phase_sessions(smi)
     phase_session_one_caller(sess["server"], smi)
     phase_session_kernel_times(sess, kernels, smi)
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_launches()
+    tiny = phase_trained_tiny(smi)
+    ref = phase_reference_checkpoint(smi)
+    for entry in kernels:
+        key = entry["name"].split(" ")[0]
+        n = tiny["launches"][key] + ref["launches"][key]
+        entry["launches_phase11"] = n
+        entry["launches"] += n
+        if key == "decode_attention_blocked":
+            entry["tiny_tts"] = {k: tiny["k4_tiny_tts"][k] for k in (
+                "ms", "device_ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms", "splits", "length")}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

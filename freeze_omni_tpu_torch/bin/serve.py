@@ -30,13 +30,20 @@ Run (the card by default; --device cpu runs the plain PyTorch versions):
   python -m freeze_omni_tpu_torch.bin.serve --preset flagship --respond
   python -m freeze_omni_tpu_torch.bin.serve --preset tiny --device cpu
 
-`--preset flagship` serves Qwen2-7B widths with seeded random weights drawn
-on the device in weight-only int8 (default) or int4 (`--quant 4`).
-Per-session KV caches are float, in the activation dtype; --kv_quant,
---max_sessions and --pipeline_ticks apply to --engine only. Checkpoints,
-reference configs, voice prompts, LoRA, session snapshots and multi-GPU
-serving are not in the port yet: each of their flags exits naming its item
-in ROADMAP.md.
+`--model_path` serves a checkpoint: a port-native system dir
+(`bin/convert_ckpt.py`, or the committed tiny system
+`freeze_omni_tpu_torch/assets/tiny_s2s`) or a reference checkpoint dir with
+`--llm_path` (the HF Qwen2 dir), whose LLM is quantized on the host to
+`--quant` bits (default 8) before it reaches the card. `--config` takes the
+reference fork's app YAML (detected by its sections: VAD, gating, sampling
+and threshold settings over the preset or checkpoint architecture, and its
+model paths where they exist) or a config tree in this package's schema.
+Without a checkpoint, `--preset flagship` serves Qwen2-7B widths with
+seeded random weights drawn on the device in weight-only int8 (default) or
+int4 (`--quant 4`). Per-session KV caches are float, in the activation
+dtype; --kv_quant, --max_sessions and --pipeline_ticks apply to --engine
+only. Voice prompts, LoRA, session snapshots and multi-GPU serving are not
+in the port yet: each of their flags exits naming its item in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -44,7 +51,9 @@ from __future__ import annotations
 import argparse
 import asyncio
 import base64
+import dataclasses
 import json
+import os
 import sys
 import threading
 from pathlib import Path
@@ -52,15 +61,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..config import flagship_system, tiny_system
+from ..config import (flagship_system, load_reference_app_yaml,
+                      load_system_config, read_yaml, tiny_system)
 
 MONITOR_HTML = Path(__file__).resolve().parents[2] / "freeze_omni_tpu" / "bin" / "monitor.html"
 
-_CHECKPOINT = "ROADMAP.md D2 (checkpoint loading: utils/factory.py, offline_infer)"
 _WAITING = (   # flag given -> SystemExit naming the ROADMAP item it waits for
-    ("config", "ROADMAP.md D3 (reference app YAML: load_reference_app_yaml)"),
-    ("model_path", _CHECKPOINT),
-    ("llm_path", _CHECKPOINT),
     ("voice_wav", "ROADMAP.md D4 (voice prompts: codec.encode, extract_global_tokens)"),
     ("lora", "ROADMAP.md D4 (LoRA merge: models/lora.py)"),
     ("lora_scale", "ROADMAP.md D4 (LoRA merge: models/lora.py)"),
@@ -111,9 +117,14 @@ def get_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--timeout", type=float, default=None,
                    help="stop serving after N seconds (for smoke tests)")
+    p.add_argument("--model_path", default=None,
+                   help="port-native system dir, or reference checkpoint dir "
+                        "(with --llm_path)")
+    p.add_argument("--llm_path", default=None, help="HF Qwen2 dir")
+    p.add_argument("--config", default=None,
+                   help="reference app YAML or a config tree (YAML/JSON)")
     # flags of the JAX server that wait for later work (see _WAITING)
-    for flag in ("config", "model_path", "llm_path", "voice_wav", "lora",
-                 "state_dir", "coordinator"):
+    for flag in ("voice_wav", "lora", "state_dir", "coordinator"):
         p.add_argument(f"--{flag}", default=None)
     p.add_argument("--lora_scale", type=float, default=None)
     p.add_argument("--resume_grace", type=float, default=None)
@@ -135,32 +146,67 @@ class Server:
                                  f"it waits for {item}{need}")
         self.args = args
         self.device = resolve_device(args.device)
-        self.cfg = tiny_system() if args.preset == "tiny" else flagship_system()
-        params = None
-        if args.preset == "flagship":
-            # weightless full-scale serving (seeded random params): the LLM
-            # is drawn directly in weight-only int8 or int4, never as a bf16
-            # tree; --quant 0 draws it in bf16
+        preset = tiny_system() if args.preset == "tiny" else flagship_system()
+        base_cfg = None
+        if args.config:
+            doc = read_yaml(args.config)
+            if ("audio_feature_gating" in doc or "dialog_state_decision" in doc
+                    or "inference_control" in doc):
+                base_cfg, extras = load_reference_app_yaml(args.config,
+                                                           base=preset)
+                # the YAML's checkpoint paths apply only where they exist (the
+                # reference file pins another machine's absolute paths)
+                for key in ("model_path", "llm_path"):
+                    if not getattr(args, key) and extras[key] and \
+                            os.path.isdir(extras[key]):
+                        setattr(args, key, extras[key])
+            else:
+                base_cfg = load_system_config(args.config)
+        params = tts_params = tokenizer = None
+        if args.model_path:
+            from ..utils.factory import load_system
+
+            # a reference dir's LLM is quantized on the host, int8 unless
+            # --quant says otherwise; a native dir restores as converted
             quant = 8 if args.quant is None else args.quant
-            params = audio_llm.init_params(
-                self.cfg.audio_llm, seed=args.seed, device=self.device,
-                llm_dtype=torch.bfloat16, quantize_llm=bool(quant),
-                quant_bits=quant or 8)
-            params = audio_llm.cast_frontend(params, torch.bfloat16)
-            print(f"weightless flagship: random params, "
-                  f"{'int%d weight-only' % quant if quant else 'bf16'} LLM",
-                  flush=True)
-        import dataclasses
+            self.cfg, params, tts_params, tokenizer = load_system(
+                args.model_path, args.llm_path, quantize_llm_bits=quant or None,
+                device=self.device)
+            print(f"loaded {args.model_path}", flush=True)
+            if base_cfg is not None:
+                # the checkpoint sets the architecture; the config still
+                # governs the runtime (VAD and gating cadence, sampling,
+                # thresholds)
+                self.cfg = dataclasses.replace(self.cfg, duplex=base_cfg.duplex,
+                                               sampling=base_cfg.sampling)
+        else:
+            self.cfg = base_cfg or preset
+            if args.preset == "flagship":
+                # weightless full-scale serving (seeded random params): the
+                # LLM is drawn directly in weight-only int8 or int4, never as
+                # a bf16 tree; --quant 0 draws it in bf16
+                quant = 8 if args.quant is None else args.quant
+                params = audio_llm.init_params(
+                    self.cfg.audio_llm, seed=args.seed, device=self.device,
+                    llm_dtype=torch.bfloat16, quantize_llm=bool(quant),
+                    quant_bits=quant or 8)
+                params = audio_llm.cast_frontend(params, torch.bfloat16)
+                print(f"weightless flagship: random params, "
+                      f"{'int%d weight-only' % quant if quant else 'bf16'} LLM",
+                      flush=True)
 
         if args.resp_threshold is not None:
             self.cfg = dataclasses.replace(
                 self.cfg, duplex=dataclasses.replace(
                     self.cfg.duplex, resp_threshold=args.resp_threshold))
-        tts_params = self._init_tts_params() if args.respond else None
+        if args.respond:
+            tts_params = tts_params or self._init_tts_params()
+        else:
+            tts_params = None
         self.service = self.pipeline = self.responder = None
         self._ticker_thread = None
         if not args.engine:
-            self._init_per_session(params, tts_params)
+            self._init_per_session(params, tts_params, tokenizer)
             return
         from ..runtime.service import DuplexService
 
@@ -169,11 +215,13 @@ class Server:
             pipeline_ticks=bool(args.pipeline_ticks),
             kv_quant_bits=args.kv_quant or None))
         # full-scale serving runs half precision (bf16 KV and frontend); the
-        # tiny preset stays f32
-        kv_dtype = torch.float32 if args.preset == "tiny" else torch.bfloat16
+        # tiny weightless preset stays f32
+        kv_dtype = (torch.float32 if args.preset == "tiny" and not args.model_path
+                    else torch.bfloat16)
         self.service = DuplexService(self.cfg, seed=args.seed,
                                      tts_params=tts_params, params=params,
-                                     kv_dtype=kv_dtype, device=self.device)
+                                     tokenizer=tokenizer, kv_dtype=kv_dtype,
+                                     device=self.device)
         if tts_params is not None and not args.no_tts_warmup:
             n = self.service.warmup_synthesis()
             print(f"synthesis pool warmup: {n} programs", flush=True)
@@ -181,7 +229,7 @@ class Server:
         self._ticker_thread = threading.Thread(target=self._ticker, daemon=True)
         self._ticker_thread.start()
 
-    def _init_per_session(self, params, tts_params) -> None:
+    def _init_per_session(self, params, tts_params, tokenizer) -> None:
         """One DuplexPipeline for every session (the KV of each is a float
         cache in the activation dtype), and with --respond one
         DuplexResponder over a StreamingTTS."""
@@ -190,6 +238,7 @@ class Server:
         from ..tts import StreamingTTS
 
         self.pipeline = DuplexPipeline(self.cfg, params=params,
+                                       tokenizer=tokenizer,
                                        seed=self.args.seed, device=self.device)
         if tts_params is not None:
             tts = StreamingTTS(tts_params, self.cfg.tts, seed=self.args.seed,

@@ -12,8 +12,8 @@ described by one immutable dataclass tree; every sub-config is hashable.
 Dimension defaults marked "(ckpt cfg)" live in external checkpoint configs in the
 reference (SURVEY.md §0); the values below are faithful to the published Freeze-Omni
 architecture and are overridable from YAML or JSON via `load_system_config`.
-The reference-config importers of the JAX module wait for the checkpoint
-conversion slice.
+The reference's own files import through `from_reference_train_yaml` (a
+checkpoint's train.yaml) and `load_reference_app_yaml` (the fork's app YAML).
 """
 
 from __future__ import annotations
@@ -491,6 +491,135 @@ def tiny_system() -> SystemConfig:
 def flagship_system() -> SystemConfig:
     """Full-size Freeze-Omni-class system (Qwen2-7B backbone)."""
     return SystemConfig()
+
+
+def read_yaml(path: str) -> dict:
+    """A YAML document (a reference train.yaml or app YAML) as a dict."""
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f) or {}
+
+
+def from_reference_train_yaml(configs: dict) -> AudioLLMConfig:
+    """Map the reference's checkpoint train.yaml (models/utils.py:30-49:
+    input_dim/output_dim + encoder_conf{overview_conf, para_conf} poured into
+    argparse, + model_conf as AudioLLM kwargs) onto the typed config tree."""
+    enc_conf = configs.get("encoder_conf", {})
+    over = dict(enc_conf.get("overview_conf", {}))
+    layer_config = over.get("encoder-layer-config", "subsampling-transformer")
+    if layer_config != "subsampling-transformer":
+        raise ValueError(
+            f"unsupported encoder-layer-config {layer_config!r}: this rebuild "
+            "implements the subsampling-transformer topology the Freeze-Omni "
+            "checkpoints use (models/encoder/encoder.py:59-89)")
+    para = enc_conf.get("para_conf", {})
+    tr = {k.replace("transformer-", "").replace("-", "_"): v
+          for k, v in dict(para.get("transformer", {})).items()
+          if k.startswith("transformer-")}
+    sub = {k.replace("subsampling-", "").replace("-", "_"): v
+           for k, v in dict(para.get("subsampling", {})).items()
+           if k.startswith("subsampling-")}
+    mc = dict(configs.get("model_conf", {}))
+
+    encoder = EncoderConfig(
+        input_dim=configs.get("input_dim", 80),
+        output_dim=over.get("encoder-output-dim",
+                            tr.get("output_dim", 512)),
+        attention_dim=tr.get("attention_dim", 512),
+        attention_heads=tr.get("attention_heads", 8),
+        linear_units=tr.get("linear_units", 2048),
+        num_blocks=tr.get("num_blocks", 16),
+        chunk_size=tr.get("chunk_size", 4),
+        left_chunks=tr.get("left_chunks", 16),
+        pos_enc=tr.get("pos_enc_class", "rel-enc"),
+        input_layer=tr.get("input_layer", "linear"),
+        positionwise=tr.get("positionwise_layer_type", "linear"),
+        positionwise_conv_kernel=tr.get("positionwise_conv_kernel_size", 1),
+        normalize_before=tr.get("normalize_before", True),
+        concat_after=tr.get("concat_after", False),
+        subsampling_rate=sub.get("rate", 4),
+    )
+    adapter = AdapterConfig(
+        enc_out_dim=mc.get("enc_out_dim", 512),
+        llm_dim=mc.get("llm_embed_dim", 3584),
+        kernel_size=mc.get("kernel_size", 3),
+        activation=mc.get("activation_func", "relu"),
+        norm=mc.get("norm", "batch"),
+    )
+    heads = mc.get("llm_head_num", 28)
+    llm = LLMConfig(
+        hidden=mc.get("llm_embed_dim", 3584),
+        num_heads=heads,
+        num_kv_heads=mc.get("num_key_value_heads", heads) or heads,
+    )
+    return AudioLLMConfig(encoder=encoder, adapter=adapter, llm=llm)
+
+
+def load_reference_app_yaml(path: str, base: "SystemConfig" = None):
+    """Import the reference fork's app config
+    (configs/dialog_state_pred_config.yaml — the file run by
+    bin/dialog_state_pred.py:42): VAD timing, feature-gating/fbank cadence,
+    sampling controls, response threshold and default prompt map onto the
+    typed tree. Returns (SystemConfig, extras) where extras carries the
+    non-architectural keys ({'model_path', 'llm_path'}) for checkpoint
+    loading."""
+    doc = read_yaml(path)
+    cfg = base or flagship_system()
+
+    vad_doc = doc.get("vad", {})
+    vad = dataclasses.replace(
+        cfg.duplex.vad,
+        sample_rate=int(doc.get("audio", {}).get(
+            "expected_sampling_rate", cfg.duplex.vad.sample_rate)),
+        threshold=float(vad_doc.get("vad_threshold",
+                                    cfg.duplex.vad.threshold)),
+        min_silence_s=float(vad_doc.get("min_silent_duration_second",
+                                        cfg.duplex.vad.min_silence_s)),
+        speech_pad_s=float(vad_doc.get("speech_pad_second",
+                                       cfg.duplex.vad.speech_pad_s)),
+        history_cache_chunks=int(vad_doc.get(
+            "vad_history_cache_chunk_cnt",
+            cfg.duplex.vad.history_cache_chunks)))
+
+    g_doc = doc.get("audio_feature_gating", {})
+    fb = g_doc.get("fbank", {})
+    gating = dataclasses.replace(
+        cfg.duplex.gating,
+        sample_rate=vad.sample_rate,
+        feat_dim=int(fb.get("feat_dim", cfg.duplex.gating.feat_dim)),
+        chunk_duration_s=float(fb.get("expected_audio_chunk_duration_in_sec",
+                                      cfg.duplex.gating.chunk_duration_s)),
+        frame_length_s=float(fb.get("audio_to_proc_per_step_in_sec",
+                                    cfg.duplex.gating.frame_length_s)),
+        frame_shift_s=float(fb.get("step_size_in_sec",
+                                   cfg.duplex.gating.frame_shift_s)),
+        context_duration_s=float(fb.get("context_duration_in_sec",
+                                        cfg.duplex.gating.context_duration_s)),
+        history_size=int(g_doc.get("feature_gating_history_size",
+                                   cfg.duplex.gating.history_size)),
+        onset_cache_size=int(g_doc.get("onset_input_chunk_cache_size",
+                                       cfg.duplex.gating.onset_cache_size)))
+
+    inf = doc.get("inference_control", {})
+    sampling = dataclasses.replace(
+        cfg.sampling,
+        top_k=int(inf.get("top_k", cfg.sampling.top_k)),
+        top_p=float(inf.get("top_p", cfg.sampling.top_p)),
+        temperature=float(inf.get("temperature", cfg.sampling.temperature)))
+
+    dec = doc.get("dialog_state_decision", {})
+    duplex = dataclasses.replace(
+        cfg.duplex, vad=vad, gating=gating,
+        resp_threshold=float(dec.get("resp_threshold",
+                                     cfg.duplex.resp_threshold)),
+        default_prompt=str(inf.get("default_prompt",
+                                   cfg.duplex.default_prompt)))
+
+    out = dataclasses.replace(cfg, duplex=duplex, sampling=sampling)
+    extras = {"model_path": doc.get("model_path"),
+              "llm_path": doc.get("llm_path")}
+    return out, extras
 
 
 def load_system_config(path: str) -> "SystemConfig":

@@ -8,7 +8,8 @@
 // Built for sm_90a by ops/_build.py and bound with ctypes (ops/attention.py).
 //
 // Contract: q [B,H,dk] (f32 or bf16); k/v [B,S,Hkv,dk] (f32 or bf16, may be
-// wider than q); length int32 [B]. Row b sees slots [0, length[b]) with GQA
+// wider than q), dk 32 (the tiny speech decoder), 64 or 128; length int32
+// [B]. Row b sees slots [0, length[b]) with GQA
 // (query head h reads kv head h / (H / Hkv)). out [B,H,dk] in q's dtype. A
 // row with length 0 (a masked row) writes zeros.
 //
@@ -42,8 +43,9 @@
 // scores set to -inf by selection, so whatever the cache holds there
 // (scratch slot S-1 collects every masked token's K/V; stale rows may hold
 // NaN) cannot reach the result. Scores: 4 lanes a slot, each a quarter of
-// dk (K rows swizzled in 16-byte chunks so a quarter-warp's loads hit
-// distinct banks), summed by two shuffles; an online softmax in base 2 per
+// dk (K rows of 8 or more 16-byte chunks swizzled so a quarter-warp's loads
+// hit distinct banks; a 4-chunk row, bf16 at dk 32, is conflict-free
+// unswizzled), summed by two shuffles; an online softmax in base 2 per
 // warp and head (m, l in registers); P @ V with each lane owning dk / 32
 // output columns of every query head, so all 32 lanes work at one query
 // head a kv head. Math is f32 FMAs; bf16 converts in registers. At the end
@@ -65,6 +67,7 @@ constexpr int kWarpSlots = 8;                 // slots a warp takes of a tile
 constexpr int kTile = kWarps * kWarpSlots;    // 32: the unit of the split cut
 constexpr int kStages = 3;                    // sub-tiles in a warp's ring
 constexpr int kMaxOut = 1024;                 // rep * dk a block can hold
+constexpr int kMaxRepAny = 16;                // query heads a kv head, any dk
 constexpr int kMaxSplits = 32;                // a lane a split in the merge
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -72,14 +75,16 @@ constexpr unsigned kFull = 0xffffffffu;
 template <typename TC, int DK>
 struct Geo {
   static constexpr int kRowBytes = DK * static_cast<int>(sizeof(TC));
-  static constexpr int kChunks = kRowBytes / 16;         // 8, 16 or 32
+  static constexpr int kChunks = kRowBytes / 16;         // 4, 8, 16 or 32
   static constexpr int kElems = 16 / static_cast<int>(sizeof(TC));
   static constexpr int kLaneChunks = kChunks / 4;        // a lane's quarter
+  static constexpr int kSwizzle = kChunks >= 8 ? 4 : 0;  // flips bit 2, odd slots
   static constexpr int kWarpStage = 2 * kWarpSlots * kRowBytes;   // K + V
   static constexpr int kRing = kStages * kWarps * kWarpStage;
-  static constexpr int kMaxRep = kMaxOut / DK;
+  static constexpr int kMaxRep = kMaxOut / DK < kMaxRepAny ? kMaxOut / DK
+                                                           : kMaxRepAny;
   static constexpr int kOut = DK / 32;                    // columns a lane owns
-  static_assert(kChunks >= 8, "the swizzle flips bit 2 of the chunk index");
+  static_assert(kChunks >= 4, "4 lanes a slot, a chunk or more each");
   static_assert(kWarps * kMaxRep * (DK + 2) * 4 <= kRing,
                 "the warps' partials reuse the ring");
 };
@@ -121,26 +126,32 @@ __device__ __forceinline__ void chunk_f32(const __nv_bfloat16* p,
   }
 }
 
-// a lane's N consecutive columns of a V row as f32 (N = 2 or 4)
+// a lane's N consecutive columns of a V row as f32 (N = 1, 2 or 4)
 template <int N>
 __device__ __forceinline__ void cols_f32(const float* p, float (&o)[N]) {
   if constexpr (N == 4) {
     const float4 u = *reinterpret_cast<const float4*>(p);
     o[0] = u.x; o[1] = u.y; o[2] = u.z; o[3] = u.w;
-  } else {
+  } else if constexpr (N == 2) {
     const float2 u = *reinterpret_cast<const float2*>(p);
     o[0] = u.x; o[1] = u.y;
+  } else {
+    o[0] = *p;
   }
 }
 template <int N>
 __device__ __forceinline__ void cols_f32(const __nv_bfloat16* p,
                                          float (&o)[N]) {
+  if constexpr (N == 1) {
+    o[0] = __bfloat162float(*p);
+  } else {
 #pragma unroll
-  for (int i = 0; i < N; i += 2) {
-    const float2 f = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(p + i));
-    o[i] = f.x;
-    o[i + 1] = f.y;
+    for (int i = 0; i < N; i += 2) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(p + i));
+      o[i] = f.x;
+      o[i + 1] = f.y;
+    }
   }
 }
 
@@ -215,7 +226,7 @@ decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
   };
   auto sub_start = [&](int i) { return (t_begin + i) * kTile + warp * kWarpSlots; };
   // sub-tile i into stage st: K rows swizzled (chunk c of slot s at
-  // c ^ 4 for odd s), V rows plain; slots past s_end zero-filled
+  // c ^ kSwizzle for odd s), V rows plain; slots past s_end zero-filled
   auto load = [&](int i, int st) {
     const int s0 = sub_start(i);
     if (s0 >= s_end) return;
@@ -227,7 +238,8 @@ decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
       const int s = c / G::kChunks, ch = c % G::kChunks;
       const bool ok = s0 + s < s_end;
       const size_t g = (size_t)(ok ? s0 + s : 0) * row_stride + ch * G::kElems;
-      cp_async16(Ks + s * G::kRowBytes + ((ch ^ ((s & 1) << 2)) * 16), kb + g, ok);
+      cp_async16(Ks + s * G::kRowBytes + ((ch ^ ((s & 1) * G::kSwizzle)) * 16),
+                 kb + g, ok);
       cp_async16(Vs + s * G::kRowBytes + ch * 16, vb + g, ok);
     }
   };
@@ -263,7 +275,7 @@ decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
       float kf[G::kLaneChunks][G::kElems];
 #pragma unroll
       for (int j = 0; j < G::kLaneChunks; ++j) {
-        const int ch = (part + 4 * j) ^ ((my & 1) << 2);
+        const int ch = (part + 4 * j) ^ ((my & 1) * G::kSwizzle);
         chunk_f32(reinterpret_cast<const TC*>(Ks + my * G::kRowBytes + ch * 16),
                   kf[j]);
       }
@@ -450,6 +462,8 @@ template <typename TQ, typename TC>
 int launch_dk(int dk, const void* q, const void* k, const void* v,
               const void* length, void* out, void* ws, int B, int H, int Hkv,
               int S, int splits, cudaStream_t s) {
+  if (dk == 32)
+    return launch<TQ, TC, 32>(q, k, v, length, out, ws, B, H, Hkv, S, splits, s);
   if (dk == 64)
     return launch<TQ, TC, 64>(q, k, v, length, out, ws, B, H, Hkv, S, splits, s);
   if (dk == 128)
@@ -459,8 +473,8 @@ int launch_dk(int dk, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q_dtype / kv_dtype: 0 = float32, 1 = bfloat16. dk: 64 or 128; rep * dk <=
-// 1024. splits: blocks a (row, kv head), 1..32 (1: K3's single pass, no
+// q_dtype / kv_dtype: 0 = float32, 1 = bfloat16. dk: 32, 64 or 128; rep =
+// H / Hkv <= 16 and rep * dk <= 1024. splits: blocks a (row, kv head), 1..32 (1: K3's single pass, no
 // merge, ws unused). ws: B*Hkv*splits*rep*(dk+2) f32 of split partials
 // (acc, then m, then l). Returns the cudaError_t of the launches (0 =
 // success). Launches on `stream`, allocates nothing, does not synchronise.
@@ -471,7 +485,8 @@ extern "C" int decode_attention_launch(int q_dtype, int kv_dtype,
                                        int Hkv, int S, int dk, int splits,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || H % Hkv != 0 || (H / Hkv) * dk > kMaxOut || splits < 1 ||
+  if (Hkv <= 0 || H % Hkv != 0 || (H / Hkv) * dk > kMaxOut ||
+      H / Hkv > kMaxRepAny || splits < 1 ||
       splits > kMaxSplits || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (q_dtype == 0 && kv_dtype == 0)

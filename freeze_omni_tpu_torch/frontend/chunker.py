@@ -1,11 +1,14 @@
-"""Duplex streaming fbank chunker (counterpart of the GatingChunker in
-freeze_omni_tpu/frontend/chunker.py; models/AudioFeatureGating.py of the
-reference).
+"""Streaming fbank chunkers (counterpart of freeze_omni_tpu/frontend/chunker.py).
 
-224 ms chunks -> [1, 32, 80] fbank windows (28 new steps + 4 context steps),
-with a history ring for IPU-onset replay. State lives in host numpy; the
-fbank runs through the port's torch fbank on the CPU. The JAX package's
-native C++ chunker is not ported.
+- `OfflineChunker`: 160 ms audio chunks -> [1, 19, 80] fbank windows with a
+  3-frame feature overlap and a 240-sample waveform overlap
+  (bin/inference.py:43-80 `audioEncoderProcessor` of the reference).
+- `GatingChunker`: 224 ms duplex chunks -> [1, 32, 80] fbank windows (28 new
+  steps + 4 context steps), with a history ring for IPU-onset replay
+  (models/AudioFeatureGating.py).
+
+State lives in host numpy; the fbank runs through the port's torch fbank on
+the CPU. The JAX package's native C++ chunker is not ported.
 """
 
 from __future__ import annotations
@@ -15,8 +18,37 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import GatingConfig
+from ..config import ChunkerConfig, FbankConfig, GatingConfig
 from .fbank import fbank
+
+
+class OfflineChunker:
+    """16-frame chunker with 3-frame context (the offline wav -> wav path)."""
+
+    def __init__(self, cfg: ChunkerConfig = ChunkerConfig()):
+        self.cfg = cfg
+        self.fbank_cfg = FbankConfig(num_mel_bins=cfg.feat_dim)
+        self.frame_overlap = cfg.frame_size - cfg.frame_shift
+        self.reset()
+
+    def get_chunk_size(self) -> int:
+        return self.cfg.samples_per_chunk
+
+    def reset(self) -> None:
+        c = self.cfg
+        self.input_sample = np.zeros(c.samples_per_chunk + self.frame_overlap, np.float32)
+        self.input_chunk = np.zeros((1, c.frames_per_step, c.feat_dim), np.float32)
+
+    def process(self, audio: np.ndarray) -> np.ndarray:
+        """audio: [samples_per_chunk] float in [-1, 1]. Returns [1, 19, 80]."""
+        c = self.cfg
+        sample_data = np.asarray(audio, np.float32).reshape(-1) * 32768.0
+        self.input_sample[: self.frame_overlap] = self.input_sample[-self.frame_overlap :]
+        self.input_sample[self.frame_overlap :] = sample_data
+        xs = fbank(torch.from_numpy(self.input_sample), self.fbank_cfg).numpy()
+        self.input_chunk[:, : c.chunk_overlap] = self.input_chunk[:, -c.chunk_overlap :]
+        self.input_chunk[:, c.chunk_overlap :] = xs
+        return self.input_chunk.copy()
 
 
 class GatingChunker:

@@ -207,6 +207,8 @@ prefill_quant.launches = 0
 # ---------------------------------------------------------------------------
 
 _MAX_REP_DK = 1024   # rep * dk a kernel block holds (32 accumulators a lane)
+_MAX_REP = 16        # query heads a kv head the decode kernel holds
+_DECODE_HEAD_DIMS = (32, 64, 128)
 
 
 def decode_attention_reference(q, k_cache, v_cache, length):
@@ -300,10 +302,11 @@ def _check_decode_args(what, q, k_cache, v_cache, length) -> None:
             f"{what}: inconsistent shapes q {tuple(q.shape)}, k_cache "
             f"{tuple(k_cache.shape)}, v_cache {tuple(v_cache.shape)}, length "
             f"{tuple(length.shape)}")
-    if dk not in _HEAD_DIMS or H % Hkv or (H // Hkv) * dk > _MAX_REP_DK:
-        raise ValueError(f"{what}: head_dim {dk} not in {_HEAD_DIMS}, H={H} "
-                         f"not a multiple of Hkv={Hkv}, or rep*dk over "
-                         f"{_MAX_REP_DK}")
+    if dk not in _DECODE_HEAD_DIMS or H % Hkv or H // Hkv > _MAX_REP \
+            or (H // Hkv) * dk > _MAX_REP_DK:
+        raise ValueError(f"{what}: head_dim {dk} not in {_DECODE_HEAD_DIMS}, "
+                         f"H={H} not a multiple of Hkv={Hkv}, or rep over "
+                         f"{_MAX_REP} or rep*dk over {_MAX_REP_DK}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")

@@ -1,9 +1,11 @@
-"""Tokenizer for weightless operation and tests (copy of the JAX package's
-utils/tokenizer.py ByteTokenizer and ChatTemplate).
+"""Tokenizers (copy of the JAX package's utils/tokenizer.py).
 
-`ByteTokenizer`: UTF-8 bytes offset past a reserved special-token block, with
-Qwen2-style chat-control tokens. `ChatTemplate`: the chat-control id sequences
-the duplex path splices in front of audio chunks.
+`HFTokenizer`: adapter over a local transformers tokenizer directory
+(transformers is imported only when one is built; nothing is downloaded).
+`ByteTokenizer`: the fallback for weightless operation and tests, UTF-8
+bytes offset past a reserved special-token block, with Qwen2-style
+chat-control tokens. `ChatTemplate`: the chat-control id sequences the
+duplex path splices in front of audio chunks.
 """
 
 from __future__ import annotations
@@ -56,6 +58,27 @@ class ByteTokenizer:
         if buf:
             parts.append(buf.decode("utf-8", errors="replace"))
         return "".join(parts)
+
+
+class HFTokenizer:
+    """Adapter over transformers.AutoTokenizer loaded from a local path."""
+
+    def __init__(self, path: str):
+        from transformers import AutoTokenizer
+
+        self.tok = AutoTokenizer.from_pretrained(path, trust_remote_code=True,
+                                                 local_files_only=True)
+        self.vocab_size = len(self.tok)
+        self.im_start_id = self.tok.convert_tokens_to_ids("<|im_start|>")
+        self.im_end_id = self.tok.convert_tokens_to_ids("<|im_end|>")
+        self.eos_token_id = self.tok.eos_token_id
+        self.eod_id = self.im_end_id
+
+    def encode(self, text: str) -> List[int]:
+        return self.tok(text)["input_ids"]
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self.tok.decode(ids)
 
 
 class ChatTemplate:

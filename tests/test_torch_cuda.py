@@ -410,12 +410,21 @@ def _decode_inputs(B, H, Hkv, dk, S, q_dtype, kv_dtype, device, seed=0,
     return q.to(device), t[0], t[1], torch.from_numpy(length).to(device)
 
 
+def decode_tol(q_dtype):
+    """K3/K4's (atol, rtol) against the plain version. bf16: one rounding of
+    the output (2^-7 relative) and 1e-3, tight enough to catch a split left
+    out or a wrong score (~1e-2 at lengths of a few hundred slots)."""
+    return (1e-3, 2 ** -7) if q_dtype == torch.bfloat16 else (TOL[q_dtype],) * 2
+
+
 DECODE_CASES = [   # B, H, Hkv, dk, S, q dtype, cache dtype
     (8, 28, 4, 128, 1024, torch.bfloat16, torch.bfloat16),   # LLM text decode
     (8, 14, 14, 64, 1265, torch.float32, torch.float32),     # BatchedTTS pool
     (8, 14, 14, 64, 2048, torch.float32, torch.float32),     # first_response
     (6, 28, 4, 128, 300, torch.bfloat16, torch.float32),     # cache wider than q
     (6, 8, 2, 64, 300, torch.float32, torch.bfloat16),
+    (6, 4, 4, 32, 256, torch.float32, torch.float32),        # tiny speech decoder
+    (6, 16, 1, 32, 300, torch.bfloat16, torch.bfloat16),     # dk 32, rep 16
 ]
 
 
@@ -434,9 +443,9 @@ def test_decode_attention_matches_plain(cuda, which, B, H, Hkv, dk, S, q_dtype,
     assert out.dtype == q_dtype and out.shape == q.shape
     assert torch.isfinite(out.float()).all()
     assert (out[~valid] == 0).all()
-    tol = TOL[q_dtype]
+    atol, rtol = decode_tol(q_dtype)
     torch.testing.assert_close(out[valid].float(), ref[valid].float(),
-                               rtol=tol, atol=tol)
+                               rtol=rtol, atol=atol)
 
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -484,9 +493,9 @@ def test_decode_attention_plan_cases(cuda, which, case):
     assert out.dtype == q_dtype and out.shape == q.shape
     assert torch.isfinite(out.float()).all()
     assert (out[~valid] == 0).all()
-    tol = TOL[q_dtype]
+    atol, rtol = decode_tol(q_dtype)
     torch.testing.assert_close(out[valid].float(), ref[valid].float(),
-                               rtol=tol, atol=tol)
+                               rtol=rtol, atol=atol)
 
 
 SESSION_SHAPES = {   # B = 1: the per-session path's two K4 calls
@@ -513,9 +522,7 @@ def test_decode_attention_one_session(cuda, case, length):
         assert (out == 0).all()
         return
     ref = att.decode_attention_reference(q, k, v, lens)
-    # bf16: one rounding of the output (2^-7 relative) and 1e-3, tight enough
-    # to catch a split left out (~1e-2 at length 2047)
-    atol, rtol = (1e-3, 2 ** -7) if q_dtype == BF16 else (TOL[q_dtype],) * 2
+    atol, rtol = decode_tol(q_dtype)
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
 
 
@@ -563,9 +570,13 @@ def test_gqa_decode_launches_k4(cuda):
 
 def test_decode_wrappers_reject_what_the_kernel_does_not_take(cuda):
     for fn in (att.decode_attention, att.decode_attention_blocked):
-        q, k, v, length = _decode_inputs(2, 4, 2, 32, 16, torch.float32,
+        q, k, v, length = _decode_inputs(2, 4, 2, 48, 16, torch.float32,
                                          torch.float32, cuda)
         with pytest.raises(ValueError, match="head_dim"):
+            fn(q, k, v, length)
+        q, k, v, length = _decode_inputs(2, 32, 1, 32, 16, torch.float32,
+                                         torch.float32, cuda)
+        with pytest.raises(ValueError, match="rep over 16"):
             fn(q, k, v, length)
         q, k, v, length = _decode_inputs(2, 4, 2, 64, 16, torch.float32,
                                          torch.float32, cuda)

@@ -21,7 +21,9 @@ STAGES = 3                    # sub-tiles in a warp's ring of copies
 # text decode at --kv_quant 0, the per-session path's B = 1 calls (the
 # LLM's bf16 text decode and StreamingTTS's speech decoder), an f32 cache
 # under the LLM's heads, narrow heads whose short rows have fewer tiles than
-# the plan has splits, and the tiny widths of the card tests
+# the plan has splits, the tiny widths of the card tests, the trained tiny
+# system's speech decoder (head dim 32) and head dim 32 under 16 query heads
+# a kv head
 SHAPES = {
     "pool": (8, 14, 14, 64, 465, torch.float32),
     "service_pool": (4, 14, 14, 64, 1521, torch.float32),
@@ -32,6 +34,8 @@ SHAPES = {
     "llm_f32_cache": (6, 28, 4, 128, 300, torch.float32),
     "short_rows": (8, 2, 2, 64, 2048, torch.float32),
     "tiny": (3, 8, 2, 64, 100, torch.bfloat16),
+    "tiny_tts": (1, 4, 4, 32, 256, torch.float32),
+    "dk32_rep16": (4, 16, 1, 32, 700, torch.bfloat16),
 }
 
 
@@ -156,9 +160,11 @@ def test_plan_puts_about_one_block_on_each_sm_and_fits_a_block(name):
     assert abs(bh * want - SMS) <= bh / 2 or want == 1
     smem = ring_bytes(H, Hkv, dk, dtype)
     assert smem <= SMEM_PER_BLOCK
-    # the 4 warps' partials (m, l and rep x dk accumulators) reuse the ring
-    assert H // Hkv <= query_heads(H, Hkv) <= 1024 // dk
-    assert WARPS * (1024 // dk) * (dk + 2) * 4 <= smem - 4 * query_heads(H, Hkv) * dk
+    # the 4 warps' partials (m, l and rep x dk accumulators) reuse the ring;
+    # a block holds at most 16 query heads and 1024 // dk
+    max_rep = min(1024 // dk, 16)
+    assert H // Hkv <= query_heads(H, Hkv) <= max_rep
+    assert WARPS * max_rep * (dk + 2) * 4 <= smem - 4 * query_heads(H, Hkv) * dk
 
 
 def test_plan_at_the_serving_shapes():

@@ -1,10 +1,12 @@
 """The port's `bin/serve`: the per-session server and the engine-mode server
 over a real websocket on the CPU, the flagship preset's int4 branch at tiny
-widths, and the flags that wait for later work."""
+widths, the checkpoint and config flags, and the flags that wait for later
+work."""
 
 import asyncio
 import base64
 import json
+import os
 import socket
 import time
 
@@ -17,6 +19,7 @@ from freeze_omni_tpu.training.vad import synth_speech
 from freeze_omni_tpu_torch import weights
 from freeze_omni_tpu_torch.bin import serve
 from freeze_omni_tpu_torch.config import tiny_system
+from tests.test_torch_checkpoint import APP_YAML
 
 
 def _free_port():
@@ -134,10 +137,66 @@ def test_tiny_preset_ignores_quant():
         server.stop_ticker()
 
 
+COPY = os.path.join(os.path.dirname(__file__), "..", "freeze_omni_tpu_torch",
+                    "assets", "tiny_s2s")
+
+
+@pytest.mark.parametrize("kind", ["native", "reference", "app_yaml"])
+def test_checkpoint_flags_load(kind, tmp_path):
+    """--model_path, --llm_path and --config load instead of exiting:
+    - native: `--preset tiny --model_path freeze_omni_tpu_torch/assets/
+      tiny_s2s` serves the trained tiny system's params (per-session
+      server);
+    - reference: a reference checkpoint dir with --llm_path, its LLM int8 by
+      default, through the engine with --respond (the converted TTS);
+    - app_yaml: `--config` with the reference app YAML takes its VAD
+      threshold and sampling over the checkpoint its model_path names."""
+    from freeze_omni_tpu_torch.utils.checkpoint import _load_chunk_index
+
+    want = _load_chunk_index(os.path.join(COPY, "chunks.json"))
+    base = ["--preset", "tiny", "--device", "cpu"]
+    if kind == "native":
+        server = serve.Server(serve.get_args([*base, "--model_path", COPY]))
+        params = server.pipeline.core.params
+        got = weights.to_numpy(params["llm"])
+        np.testing.assert_array_equal(got["embed"]["w"],
+                                      want["audiollm"]["llm"]["embed"]["w"])
+        np.testing.assert_array_equal(
+            weights.to_numpy(params["encoder_user"])["blocks"]["q"]["w"],
+            want["audiollm"]["encoder_user"]["blocks"]["q"]["w"])
+        assert server.cfg.audio_llm.llm.vocab_size == 512
+        return
+    if kind == "reference":
+        import chip_smoke  # its phase-11c writer, at tiny widths here
+
+        model_path, llm_path = chip_smoke.write_reference_checkpoint(
+            str(tmp_path), tiny_system(), seed=5, device="cpu")
+        server = serve.Server(serve.get_args(
+            [*base, "--engine", "--respond", "--model_path", model_path,
+             "--llm_path", llm_path]))
+        try:
+            llm = server.service.engine.core.params["llm"]
+            assert llm["layers"]["q"]["w_q"].dtype == torch.int8
+            assert llm["layers"]["ln1"]["scale"].dtype == torch.bfloat16
+            assert server.service.engine.store.caches.kv.k.dtype == torch.bfloat16
+            assert server.cfg.audio_llm.llm.num_layers == 2   # the HF config's
+            assert server.service.tts_params["codec"]["generator"] is not None
+        finally:
+            server.stop_ticker()
+        return
+    yaml_doc = APP_YAML.replace('"/ckpt"', json.dumps(os.path.abspath(COPY)))
+    (tmp_path / "app.yaml").write_text(yaml_doc)
+    server = serve.Server(serve.get_args(
+        [*base, "--config", str(tmp_path / "app.yaml")]))
+    assert server.args.model_path == os.path.abspath(COPY)
+    assert server.cfg.duplex.vad.threshold == 0.6
+    assert server.cfg.sampling.top_k == 7 and server.cfg.duplex.resp_threshold == 0.55
+    got = weights.to_numpy(server.pipeline.core.params["llm"])
+    np.testing.assert_array_equal(got["lm_head"]["w"],
+                                  want["audiollm"]["llm"]["lm_head"]["w"])
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--engine", "--config", "x.yaml"], "D3"),
-    (["--engine", "--model_path", "ckpt"], "D2"),
-    (["--engine", "--llm_path", "llm"], "D2"),
     (["--engine", "--voice_wav", "v.wav"], "D4"),
     (["--engine", "--lora", "a.npz"], "D4"),
     (["--engine", "--lora_scale", "0.5"], "D4"),
