@@ -191,7 +191,38 @@ raises and the script exits nonzero without printing a result. Phases:
    ..., "--llm_path", ...])) and one DuplexSession on its pipeline: a reset,
    then user speech until two dialog_state_update events. Launch counts
    are zeroed before and read after; K1 and K4 must be > 0. Prints the load
-   time and the peak memory.
+   time and the peak memory;
+12. voice prompts, the LoRA merge, serving snapshots and the last serving
+   CLIs (phase 11's systems freed first; prints its wall time): (a) a
+   rank-16 adapter on all 7 targets (B drawn non-zero) merged with
+   models/lora.merge into int8 and int4 trees at Qwen2-7B widths with 2 LLM
+   layers, on the card and on the CPU: merged scales within one f32 ulp,
+   codes equal where the scales are and within one elsewhere, other leaves
+   within 1e-6; then phase 4's tick parity on the merged weights (4 ticks,
+   5e-3, decisions and KV lengths equal); (b) Server(get_args(SERVE_ARGV +
+   [--lora <adapter.npz>, --voice_wav dev_wavs/asr_000.wav, --state_dir
+   <tmp>])) at full depth, TF32 off for its f32 voice encoder: the merge
+   time over 28 layers x 7 targets and the peak memory; the voice's global
+   tokens, card against the same call on the CPU (equal, or a near-tie:
+   the card's codeword within 1e-5 relative of the CPU's least distance);
+   8 sessions, 10 dual ticks on fixed dev-wav fbank windows (as phase 6
+   feeds them), Server.snapshot (the bytes and seconds), 10 more ticks
+   recorded; the server freed, a second one with the same flags,
+   Server.restore_snapshot (the seconds), the clients reattach (KV lengths
+   as saved) and the 10 ticks are replayed: probabilities within 1e-3 of
+   the recorded run, decisions and KV lengths equal, K5 and K2 launched;
+   then user speech until half the users are inside an IPU and one step at
+   threshold 0: the sessions that speak get finite PCM within [-1, 1], K1
+   (the int8 lm_head) and K4 launch; one fixed sentence through a BatchedTTS
+   pool, greedy, in the voice, again, and in the default voice: the voice's
+   PCM differs from the default's by more than ten times the repeat's
+   difference; (c) bin/codec_tool.main on that dev wav at the flagship codec
+   (seeded random weights with the encoder branch): code shapes, a finite
+   reconstruction; (d) bin/out_cer_eval.main on the trained tiny system
+   (the port's copy) at --top_k 1 on sentences.txt, on the card and on the
+   CPU, TF32 off: both out-CERs beside QUALITY.json's, every differing
+   hypothesis printed (the ASR pass samples at the config's top-k with each
+   device's generator), K4 launched.
 
 The last lines: the nvidia-smi line, one {"kernels": [...]} JSON line and
 the device JSON line.
@@ -843,24 +874,34 @@ def parity_config():
 def phase_tick_parity(bits):
     """The tick, card against CPU, with int8 (`bits` = 8) or int4 (4) LLM
     weights drawn as the flagship server draws them."""
-    import numpy as np
     import torch
 
     from freeze_omni_tpu_torch.models import audio_llm
-    from freeze_omni_tpu_torch.runtime.engine import ServingEngine
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = parity_config()
     params = audio_llm.init_params(cfg.audio_llm, seed=1, device="cuda",
                                    quantize_llm=True, quant_bits=bits)
-    gpu = ServingEngine(cfg, params, device="cuda")
-    cpu = ServingEngine(cfg, tree_to(params, "cpu"), device="cpu")
+    return tick_parity(cfg, params, tree_to(params, "cpu"), 5,
+                       f"int{bits} weights")
+
+
+def tick_parity(cfg, gpu_params, cpu_params, n_ticks, label):
+    """`n_ticks` dual ticks of two sessions through an engine on the card
+    and one on the CPU, fed the same fbank windows: probabilities within
+    5e-3, decisions and KV lengths equal. Returns (card engine, CPU engine,
+    sids)."""
+    import numpy as np
+
+    from freeze_omni_tpu_torch.runtime.engine import ServingEngine
+
+    gpu = ServingEngine(cfg, gpu_params, device="cuda")
+    cpu = ServingEngine(cfg, cpu_params, device="cpu")
     sids = ["p0", "p1"]
     for sid in sids:
         gpu.open_session(sid)
         cpu.open_session(sid)
-    n_ticks = 5
     feeds = session_feeds(cfg.duplex.gating, len(sids), n_ticks)
     atol, thr, worst, compared = 5e-3, cfg.duplex.resp_threshold, 0.0, 0
     for tick in range(n_ticks):
@@ -884,7 +925,7 @@ def phase_tick_parity(bits):
             raise AssertionError(f"tick {tick}: KV lengths {gl} vs {cl}")
     if compared == 0:
         raise AssertionError("no user prediction was compared")
-    log(f"[tick-parity] int{bits} weights, 2-layer flagship widths, {n_ticks} "
+    log(f"[tick-parity] {label}, 2-layer flagship widths, {n_ticks} "
         f"dual ticks x 2 sessions: card vs cpu max |dprob| {worst:.3e} over "
         f"{compared} probabilities (atol {atol}); KV lengths equal")
     return gpu, cpu, sids
@@ -2886,6 +2927,453 @@ def phase_reference_checkpoint(smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: voice prompts, the LoRA merge, serving snapshots, the codec and
+# output-CER CLIs
+# ---------------------------------------------------------------------------
+
+LORA_RANK = 16
+GST_TIE = 1e-5        # a differing voice token's distance within this of the least
+REPLAY_ATOL = 1e-3    # restored ticks against the uninterrupted run
+SNAPSHOT_TICKS = 10   # ticks before the snapshot, and again after it
+VOICE_WAV = os.path.join(TINY_DATA, "dev_wavs", "asr_000.wav")
+
+
+def lora_adapter(llm_cfg, seed, device):
+    """A rank-LORA_RANK adapter on all 7 targets, its B drawn non-zero (an
+    untrained adapter's B is zero): the delta moves each weight by ~5-10 %
+    of its range."""
+    import torch
+
+    from freeze_omni_tpu_torch.models import lora
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    tree = lora.init(llm_cfg, g, rank=LORA_RANK, targets=lora.TARGETS,
+                     device=device)
+    for pair in tree.values():
+        pair["b"] = 0.05 * torch.randn(pair["b"].shape, generator=g, device=device)
+    return tree
+
+
+def merge_agreement(card, cpu):
+    """Card against CPU over the merged layer leaves: dense leaves within
+    1e-6, scales within one f32 ulp, codes equal where the scales are and
+    within one elsewhere. Returns (scale ulps {0: n, 1: n}, codes off by
+    one)."""
+    import numpy as np
+    import torch
+
+    ulps, off = {0: 0, 1: 0}, 0
+    for name, leaves in cpu["layers"].items():
+        for key, c in leaves.items():
+            g = card["layers"][name][key].cpu()
+            if g.dtype != c.dtype or g.shape != c.shape:
+                raise AssertionError(f"merged {name}.{key}: {g.dtype} {tuple(g.shape)} "
+                                     f"vs {c.dtype} {tuple(c.shape)}")
+            if key in ("scale", "scale4"):
+                u = (g.view(torch.int32).long() - c.view(torch.int32).long()).abs()
+                if int(u.max()) > 1:
+                    raise AssertionError(f"merged {name}.{key}: scales {int(u.max())} "
+                                         f"ulps apart")
+                for k in ulps:
+                    ulps[k] += int((u == k).sum())
+            elif key in ("w_q", "w_q4"):
+                sk = "scale" if key == "w_q" else "scale4"
+                same = (card["layers"][name][sk].cpu() == leaves[sk]).numpy()
+                a, b = g.numpy(), c.numpy()
+                if key == "w_q4":
+                    rows = same.repeat(a.shape[-2] // same.shape[-2], axis=-2)
+                    parts = [(a & 0xF, b & 0xF), (a >> 4, b >> 4)]
+                else:
+                    rows = np.broadcast_to(same[..., None, :], a.shape)
+                    parts = [(a, b)]
+                for x, y in parts:
+                    d = np.abs(x.astype(np.int16) - y.astype(np.int16))
+                    if d.max() > 1 or d[rows].any():
+                        raise AssertionError(f"merged {name}.{key}: codes differ "
+                                             f"by {d.max()} ({int(d[rows].sum())} "
+                                             f"where the scales are equal)")
+                    off += int(d.sum())
+            else:
+                err = float((g.float() - c.float()).abs().max())
+                if err > 1e-6:
+                    raise AssertionError(f"merged {name}.{key}: |d| {err}")
+    return ulps, off
+
+
+def phase_lora_parity(smi):
+    """12a: the LoRA merge card against CPU at full width with 2 LLM layers,
+    into int8 and into int4 trees as the flagship server draws them, then
+    one tick run on the merged weights, card against CPU (phase 4's rule)."""
+    import torch
+
+    from freeze_omni_tpu_torch.models import audio_llm, lora
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = parity_config()
+    adapter = lora_adapter(cfg.audio_llm.llm, 12, "cuda")
+    # the f32 delta A @ B of layer 0, card against CPU
+    delta_off = {name: int((lora._delta(p["a"][0], p["b"][0], 1.0).cpu()
+                            != lora._delta(p["a"][0].cpu(), p["b"][0].cpu(), 1.0)
+                            ).sum()) for name, p in adapter.items()}
+    log(f"[lora] ({smi}) f32 delta of layer 0, card vs CPU, elements that "
+        f"differ: {delta_off}")
+    for bits in (8, 4):
+        params = audio_llm.init_params(cfg.audio_llm, seed=1, device="cuda",
+                                       quantize_llm=True, quant_bits=bits)
+        cpu_params = tree_to(params, "cpu")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params["llm"] = lora.merge(params["llm"], adapter, 1.0)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu_params["llm"] = lora.merge(cpu_params["llm"], tree_to(adapter, "cpu"), 1.0)
+        cpu_s = time.perf_counter() - t
+        ulps, off = merge_agreement(params["llm"], cpu_params["llm"])
+        log(f"[lora] ({smi}) int{bits}, 2 layers x 7 targets at Qwen2-7B widths, "
+            f"rank {LORA_RANK}: merge {card_s:.3f} s on the card, {cpu_s:.3f} s on "
+            f"the CPU; scales equal {ulps[0]}, 1 ulp apart {ulps[1]}; codes off "
+            f"by one {off}")
+        tick_parity(cfg, params, cpu_params, 4, f"int{bits} weights + LoRA merged")
+        del params, cpu_params
+    torch.backends.cudnn.allow_tf32 = True   # serving default
+
+
+def gst_distances(codec_params, ccfg, wav, sr):
+    """Per group, the distance of every global-style-token codeword to the
+    voice's global feature (codec._nearest's), from the features
+    extract_global_tokens computes, on the params' device."""
+    import torch
+
+    from freeze_omni_tpu_torch.models import codec
+    from freeze_omni_tpu_torch.tts import codec_input
+
+    x = codec_input(ccfg, wav, sr)
+    dev = codec_params["encoder"]["conv_pre"]["w"].device
+    with torch.no_grad():
+        _, gfeat = codec.encode_features(codec_params, ccfg,
+                                         torch.from_numpy(x[None, None]).to(dev))
+    w = ccfg.global_feature_dim // ccfg.global_code_num
+    return [codec.codeword_distances(codec_params["quantizer"]["gst"][g],
+                                     gfeat[:, g * w:(g + 1) * w])[0].cpu()
+            for g in range(ccfg.global_code_num)]
+
+
+def phase_snapshot_server(smi):
+    """12b: Server(SERVE_ARGV + --lora, --voice_wav, --state_dir) at full
+    depth, its ticker stopped and its engine driven here: 8 sessions tick,
+    snapshot through Server.snapshot, tick on (recorded); a second server
+    with the same flags restores through Server.restore_snapshot, its
+    clients reattach and the recorded ticks are replayed; then one step at
+    threshold 0 makes the sessions inside an IPU speak in the voice."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch.bin import serve
+    from freeze_omni_tpu_torch.frontend.wav import read_wav
+    from freeze_omni_tpu_torch.models import lora
+    from freeze_omni_tpu_torch.runtime.tts_batch import BatchedTTS
+    from freeze_omni_tpu_torch.tts import extract_global_tokens
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    voice = os.path.join(root, VOICE_WAV)
+    tmp = tempfile.mkdtemp(prefix="phase12_")
+    merge_s = []
+    merge = serve._merge_lora
+
+    def timed_merge(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = merge(*a, **k)
+        torch.cuda.synchronize()
+        merge_s.append(time.perf_counter() - t)
+        return out
+
+    try:
+        cfg = serve.flagship_system()
+        adapter = os.path.join(tmp, "adapter.npz")
+        lora.save(adapter, lora_adapter(cfg.audio_llm.llm, 13, "cpu"), 1.0)
+        state = os.path.join(tmp, "state")
+        argv = SERVE_ARGV + ["--lora", adapter, "--voice_wav", voice,
+                             "--state_dir", state]
+
+        def boot():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            serve._merge_lora = timed_merge
+            # the voice prompt's f32 encoder without TF32, as on the CPU
+            torch.backends.cudnn.allow_tf32 = False
+            t = time.perf_counter()
+            try:
+                server = serve.Server(serve.get_args(argv))
+            finally:
+                torch.backends.cudnn.allow_tf32 = True
+                serve._merge_lora = merge
+            server.stop_ticker()
+            torch.cuda.synchronize()
+            log(f"[snapshot] ({smi}) Server({' '.join(argv[len(SERVE_ARGV):])} "
+                f"+ phase 9's flags) built in {time.perf_counter() - t:.1f} s; "
+                f"LoRA merge over {cfg.audio_llm.llm.num_layers} layers x 7 "
+                f"targets into the int4 tree {merge_s[-1]:.2f} s; peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            return server
+
+        server = boot()
+        svc, engine = server.service, server.service.engine
+        llm = engine.core.params["llm"]
+        if any("w_q4" not in llm["layers"][n] for n in lora.TARGETS):
+            raise AssertionError("the merged server's projections are not int4")
+        card_gst = tuple(server.cfg.tts.codec.global_tokens)
+        codec_cpu = tree_to(svc.tts_params["codec"], "cpu")
+        wav, sr = read_wav(voice)
+        t = time.perf_counter()
+        cpu_gst = extract_global_tokens(codec_cpu, cfg.tts.codec, wav, sr)
+        cpu_s = time.perf_counter() - t
+        ties = []
+        dist = (gst_distances(codec_cpu, cfg.tts.codec, wav, sr)
+                if card_gst != tuple(cpu_gst) else None)
+        for g, (a, b) in enumerate(zip(card_gst, cpu_gst)):
+            if a != b:
+                gap = float(dist[g][a] - dist[g][b]) / abs(float(dist[g][b]))
+                ties.append((g, a, b, gap))
+                if gap > GST_TIE:
+                    raise AssertionError(f"voice token {g}: card {a}, cpu {b}, "
+                                         f"distance {gap:.3e} relative apart")
+        log(f"[snapshot] voice tokens of {VOICE_WAV}: card {list(card_gst)}, cpu "
+            f"{list(cpu_gst)} ({cpu_s:.2f} s on the CPU); near-ties {ties}")
+        default_gst = tuple(cfg.tts.codec.global_tokens)
+        if card_gst == default_gst:
+            raise AssertionError("the voice tokens are the default ones")
+
+        sids = [f"r{i}" for i in range(8)]
+        sinks = {sid: svc.open_session(sid) for sid in sids}
+        feeds = session_feeds(cfg.duplex.gating, len(sids), 2 * SNAPSHOT_TICKS)
+        plan = [[(sid, ident, item) for sid, feed in zip(sids, feeds)
+                 for ident in ("user", "system")
+                 for item in [feed[ident].next(t)] if item is not None]
+                for t in range(2 * SNAPSHOT_TICKS)]
+
+        def run_ticks(eng, ticks):
+            out = []
+            for t in ticks:
+                for sid, ident, item in plan[t]:
+                    eng.submit_chunk(sid, ident, *item)
+                res = eng.tick().get("user", {})
+                slots = {sid: eng.store.slot_of(sid) for sid in sids}
+                out.append(({sid: res[s] for sid, s in slots.items() if s in res},
+                            {sid: eng.store.kv_length(s) for sid, s in slots.items()}))
+            return out
+
+        zero_launches()
+        run_ticks(engine, range(SNAPSHOT_TICKS))
+        at_snapshot = {sid: engine.store.kv_length(engine.store.slot_of(sid))
+                       for sid in sids}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        saved = server.snapshot()
+        snap_s = time.perf_counter() - t
+        size = sum(os.path.getsize(os.path.join(state, f)) for f in os.listdir(state))
+        if sorted(saved) != sorted(sids):
+            raise AssertionError(f"snapshot saved {saved}")
+        recorded = run_ticks(engine, range(SNAPSHOT_TICKS, 2 * SNAPSHOT_TICKS))
+        del server, svc, engine, llm, sinks
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[snapshot] ({smi}) {SNAPSHOT_TICKS} dual ticks x 8 sessions, then "
+            f"Server.snapshot: {len(saved)} sessions, {size / 1e6:.1f} MB written "
+            f"in {snap_s:.2f} s (KV lengths {list(at_snapshot.values())}); "
+            f"{SNAPSHOT_TICKS} more ticks recorded; the server freed")
+
+        server = boot()
+        svc, engine = server.service, server.service.engine
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        restored = server.restore_snapshot()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        sinks = {sid: svc.open_session(sid) for sid in sids}   # clients reattach
+        reattached = {sid: engine.store.kv_length(engine.store.slot_of(sid))
+                      for sid in sids}
+        if sorted(restored) != sorted(sids) or reattached != at_snapshot:
+            raise AssertionError(f"restored {restored}, KV lengths {reattached} "
+                                 f"vs {at_snapshot}")
+        before = read_launches()
+        replayed = run_ticks(engine, range(SNAPSHOT_TICKS, 2 * SNAPSHOT_TICKS))
+        tick_launches = {k: v - before[k] for k, v in read_launches().items()}
+        thr, worst, compared, exempt = cfg.duplex.resp_threshold, 0.0, 0, 0
+        for t, ((rp, rl), (pp, pl)) in enumerate(zip(recorded, replayed)):
+            if rl != pl or sorted(rp) != sorted(pp):
+                raise AssertionError(f"replayed tick {t}: KV lengths {pl} vs {rl}, "
+                                     f"predicted {sorted(pp)} vs {sorted(rp)}")
+            for sid in rp:
+                for key in ("state_1", "state_2"):
+                    a, b = pp[sid][key], rp[sid][key]
+                    worst = max(worst, abs(a - b))
+                    compared += 1
+                    if not (np.isfinite(a) and abs(a - b) <= REPLAY_ATOL):
+                        raise AssertionError(f"replayed tick {t} {sid} {key}: "
+                                             f"{a} vs recorded {b}")
+                    if (a > thr) != (b > thr):
+                        if abs(b - thr) > REPLAY_ATOL:
+                            raise AssertionError(f"replayed tick {t} {sid}: "
+                                                 f"decision differs")
+                        exempt += 1
+        if not compared:
+            raise AssertionError("no replayed prediction was compared")
+        log(f"[snapshot] ({smi}) the second server restored {len(restored)} "
+            f"sessions in {restore_s:.2f} s (read, requantized to int8 KV); "
+            f"reattached with their KV lengths; {SNAPSHOT_TICKS} replayed ticks "
+            f"against the recorded run: max |dprob| {worst:.3e} over {compared} "
+            f"probabilities (atol {REPLAY_ATOL}), KV lengths and decisions equal "
+            f"({exempt} within atol of the threshold); launches {tick_launches}")
+        for key in ("quant_matmul4", "prefill_quant"):
+            if not tick_launches[key]:
+                raise AssertionError(f"{key} did not launch on the restored ticks")
+
+        # the sessions inside an IPU speak, in the voice
+        svc.resp_threshold = 2.0
+        n = cfg.duplex.gating.samples_per_chunk
+        users = user_streams(len(sids), n)
+        rng = np.random.RandomState(12)
+        for k in range(60):
+            in_ipu = sum(svc.sessions[sid].vad["user"].in_speech for sid in sids)
+            fire = in_ipu >= len(sids) // 2 or (in_ipu and k >= 30)
+            for i, sid in enumerate(sids):
+                svc.enqueue_audio_data(sid, "user", {"audio": users[i][k * n:(k + 1) * n]})
+                svc.enqueue_audio_data(sid, "system", {
+                    "audio": (LINE_NOISE * rng.randn(n)).astype(np.float32)})
+            if fire:
+                svc.resp_threshold = 0.0
+                before = read_launches()
+            svc.step()
+            if fire:
+                break
+        else:
+            raise AssertionError("no user IPU opened in 60 steps")
+        torch.cuda.synchronize()
+        resp_launches = {k: v - before[k] for k, v in read_launches().items()}
+        speakers = {sid: sinks[sid].events_of("response_audio") for sid in sids}
+        speakers = {sid: ev for sid, ev in speakers.items() if ev}
+        if not speakers:
+            raise AssertionError("the threshold-0 step made no session speak")
+        for sid, ev in speakers.items():
+            for a in ev:
+                if not (np.isfinite(a["pcm"]).all() and np.abs(a["pcm"]).max() <= 1):
+                    raise AssertionError(f"{sid}: voice PCM not finite or outside [-1, 1]")
+        if not resp_launches["quant_matmul"] or not resp_launches["decode_attention_blocked"]:
+            raise AssertionError(f"K1 and K4 must launch in the response: {resp_launches}")
+
+        # one fixed sentence, greedy, in the voice and in the default voice:
+        # the same codec tokens, so the PCM differs only by the style tokens
+        tcfg = dataclasses.replace(server.cfg.tts, top_k=1, max_tokens=120)
+        text = fixed_sentences()[0]
+        hidden, prefix = sentence_inputs(engine, text, [np.asarray(
+            engine.embed_tokens([65, 66, 67]))[None]])
+        pcm = {}
+        for name, tokens in (("voice", card_gst), ("again", card_gst),
+                             ("default", default_gst)):
+            pool = BatchedTTS(svc.tts_params, tcfg, capacity=1, device="cuda")
+            pool.set_global_tokens(tokens)
+            pcm[name] = _pool_sentence(pool, name, hidden, prefix)
+
+        def dpcm(a, b):
+            return float(np.abs(pcm[a] - pcm[b]).max()) \
+                if pcm[a].shape == pcm[b].shape else float("inf")
+
+        # the voice against the same call repeated (the floor) and against
+        # the default tokens
+        d, floor = dpcm("voice", "default"), dpcm("voice", "again")
+        if not (np.isfinite(pcm["voice"]).all() and d > max(10 * floor, 1e-6)):
+            raise AssertionError(f"the voice's PCM does not differ from the "
+                                 f"default voice's: max |d| {d}, repeat {floor}")
+        launches = read_launches()
+        log(f"[snapshot] ({smi}) threshold-0 step: {len(speakers)} sessions spoke "
+            f"({', '.join(speakers)}), PCM finite within [-1, 1]; launches in "
+            f"the step {resp_launches}; {text!r} in the voice vs the default "
+            f"tokens (greedy, same codec tokens): max |dpcm| {d:.3e}, the same "
+            f"call repeated {floor:.3e}; launches in "
+            f"12b {launches}")
+        del server, svc, engine, sinks
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"launches": launches, "merge_s": merge_s, "snapshot_s": snap_s,
+                "snapshot_bytes": size, "restore_s": restore_s, "dprob": worst}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_codec_tool(smi):
+    """12c: bin/codec_tool.main on a dev wav at the flagship codec (seeded
+    random weights with the encoder branch) on the card."""
+    import tempfile
+
+    import numpy as np
+
+    from freeze_omni_tpu_torch.bin import codec_tool
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="codec_") as tmp:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            codes, gst, recon = codec_tool.main([
+                "--preset", "flagship", "--input_wav", os.path.join(root, VOICE_WAV),
+                "--output_wav", os.path.join(tmp, "out.wav"), "--device", "cuda"])
+        seconds = time.perf_counter() - t
+    if not (np.isfinite(recon).all() and recon.size):
+        raise AssertionError("codec_tool's reconstruction is empty or not finite")
+    log(f"[codec] ({smi}) codec_tool at the flagship codec: codes {codes.shape}, "
+        f"global tokens {gst.ravel().tolist()}, {recon.size} samples, finite, "
+        f"in {seconds:.2f} s wall")
+
+
+def phase_out_cer(smi):
+    """12d: bin/out_cer_eval.main on the trained tiny system (the port's
+    copy) at top-k 1 on sentences.txt, on the card and on the CPU, TF32
+    off."""
+    import torch
+
+    from freeze_omni_tpu_torch.bin import out_cer_eval
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, TINY_DATA, "QUALITY.json")) as f:
+        quality = json.load(f)["out_cer_by_top_k"]["1"]
+    flags = ["--model_path", os.path.join(root, TINY_COPY), "--manifest",
+             os.path.join(root, TINY_DATA, "sentences.txt"), "--top_k", "1",
+             "--max_tokens", "24"]
+    before = read_launches()
+    card, card_s = _harness(out_cer_eval.main, flags + ["--device", "cuda"])
+    launches = {k: v - before[k] for k, v in read_launches().items()}
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        cpu = out_cer_eval.main(flags + ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t
+    with open(os.path.join(root, TINY_DATA, "sentences.txt")) as f:
+        refs = [ln.strip() for ln in f if ln.strip()]
+    hyps = (card["hypotheses"][1], cpu["hypotheses"][1])
+    differ = [(r, a, b) for r, a, b in zip(refs, *hyps) if a != b]
+    log(f"[out-cer] ({smi}) the trained tiny system, top-k 1, {len(refs)} "
+        f"sentences, TF32 off: out-CER card {card['by_top_k'][1]:.2f} % "
+        f"({card_s:.2f} s wall), cpu {cpu['by_top_k'][1]:.2f} % ({cpu_s:.2f} s), "
+        f"QUALITY.json {quality:.2f} %; {len(differ)} hypotheses differ"
+        + "".join(f"; {r!r}: card {a!r}, cpu {b!r}" for r, a, b in differ)
+        + f"; launches {launches}")
+    if launches["decode_attention_blocked"] == 0:
+        raise AssertionError("out_cer_eval's StreamingTTS launched no K4")
+    torch.backends.cudnn.allow_tf32 = True   # serving default
+    return launches
+
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import gc
@@ -2951,6 +3439,22 @@ def main() -> int:
             entry["tiny_tts"] = {k: tiny["k4_tiny_tts"][k] for k in (
                 "ms", "device_ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms", "splits", "length")}
+    del tiny, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    phase_lora_parity(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    snap = phase_snapshot_server(smi)
+    phase_codec_tool(smi)
+    out_cer = phase_out_cer(smi)
+    log(f"[phase 12] {time.perf_counter() - t12:.1f} s wall")
+    for entry in kernels:
+        key = entry["name"].split(" ")[0]
+        n = snap["launches"][key] + out_cer[key]
+        entry["launches_phase12"] = n
+        entry["launches"] += n
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,9 @@ Usage (the card by default; --device cpu runs the plain PyTorch versions):
       [--model_path CKPT --llm_path LLM] [--device cpu]
 
 `--model_path` takes a reference checkpoint dir (with `--llm_path`) or a
-port-native system dir. Voice prompts (`--voice_wav`) wait for ROADMAP.md D4.
+port-native system dir. `--voice_wav` speaks in the voice of a reference
+wav: the codec's global style tokens of it (the codec's encode half; seeded
+random codec weights are then drawn with the encoder branch).
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from ..tts import StreamingTTS
 from ..utils.logging import span, span_report
 
 SENTENCE_SUFFIXES = ("。", "：", "？", "！", ".", "?", "!", "\n")
-_VOICE = "ROADMAP.md D4 (voice prompts: codec.encode, extract_global_tokens)"
 
 
 def get_args(argv=None):
@@ -54,7 +55,9 @@ def get_args(argv=None):
     p.add_argument("--max_tokens", type=int, default=128)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--voice_wav", default=None,
-                   help="voice prompt (not in the PyTorch port yet)")
+                   help="voice prompt: reference wav whose TiCodec global "
+                        "style tokens condition the synthesized speech "
+                        "(needs codec params with the encoder branch)")
     return p.parse_args(argv)
 
 
@@ -84,10 +87,8 @@ def run_inference(cfg: SystemConfig, args, pipeline=None, tts_params=None):
     """One turn: returns (the response text, 24 kHz PCM), and writes the PCM
     to args.output_wav. `pipeline` and `tts_params` (trees on the
     pipeline's device) skip the loading."""
-    if getattr(args, "voice_wav", None):
-        raise SystemExit(f"--voice_wav is not in the PyTorch port yet: it "
-                         f"waits for {_VOICE}")
     device = getattr(args, "device", None)
+    voice_wav = getattr(args, "voice_wav", None)
     with span("init"):
         model_path = getattr(args, "model_path", None)
         if pipeline is None and model_path:
@@ -107,9 +108,20 @@ def run_inference(cfg: SystemConfig, args, pipeline=None, tts_params=None):
 
             g = torch.Generator(device=dev).manual_seed(args.seed + 7)
             tts_params = {"decoder": sd.init_params(cfg.tts.decoder, g, device=dev),
-                          "codec": codec_mod.init_params(cfg.tts.codec, g,
-                                                         device=dev)}
+                          "codec": codec_mod.init_params(
+                              cfg.tts.codec, g, device=dev,
+                              with_encoder=bool(voice_wav))}
         tts = StreamingTTS(tts_params, cfg.tts, seed=args.seed, device=dev)
+        if voice_wav:
+            from ..tts import extract_global_tokens
+
+            vwav, vsr = read_wav(voice_wav)
+            if vwav.ndim > 1:
+                vwav = vwav.mean(axis=1)
+            gst = extract_global_tokens(tts_params["codec"], cfg.tts.codec,
+                                        vwav, vsr)
+            tts.set_global_tokens(gst)
+            print(f"voice prompt: global tokens {gst}")
         chunker = OfflineChunker(cfg.chunker)
 
     with span("read_audio"):

@@ -42,8 +42,19 @@ Without a checkpoint, `--preset flagship` serves Qwen2-7B widths with
 seeded random weights drawn on the device in weight-only int8 (default) or
 int4 (`--quant 4`). Per-session KV caches are float, in the activation
 dtype; --kv_quant, --max_sessions and --pipeline_ticks apply to --engine
-only. Voice prompts, LoRA, session snapshots and multi-GPU serving are not
-in the port yet: each of their flags exits naming its item in ROADMAP.md.
+only.
+
+`--voice_wav` derives the codec's global style tokens from a reference wav
+(the codec's encode half; seeded random codec weights are drawn with it)
+and every synthesizer speaks in that voice. `--lora` merges an adapter .npz
+(`models/lora.py`, the JAX package's format) into the LLM weights at boot,
+into the quantized tree where the LLM is quantized; `--lora_scale`
+overrides its scale. `--state_dir` (with --engine) restores the sessions
+saved there at boot and snapshots every live session at shutdown; a client
+that reconnects with its sid resumes its dialog, and a restored session
+whose client does not return within `--resume_grace` seconds is closed.
+Multi-GPU serving is not in the port yet: its flags exit naming their item
+in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -67,17 +78,12 @@ from ..config import (flagship_system, load_reference_app_yaml,
 MONITOR_HTML = Path(__file__).resolve().parents[2] / "freeze_omni_tpu" / "bin" / "monitor.html"
 
 _WAITING = (   # flag given -> SystemExit naming the ROADMAP item it waits for
-    ("voice_wav", "ROADMAP.md D4 (voice prompts: codec.encode, extract_global_tokens)"),
-    ("lora", "ROADMAP.md D4 (LoRA merge: models/lora.py)"),
-    ("lora_scale", "ROADMAP.md D4 (LoRA merge: models/lora.py)"),
-    ("state_dir", "ROADMAP.md D5 (session export/import)"),
-    ("resume_grace", "ROADMAP.md D5 (session export/import)"),
     ("tp", "ROADMAP.md D9 (multi-GPU serving)"),
     ("coordinator", "ROADMAP.md D9 (multi-GPU serving)"),
     ("num_hosts", "ROADMAP.md D9 (multi-GPU serving)"),
     ("host_id", "ROADMAP.md D9 (multi-GPU serving)"),
 )
-_ENGINE_ONLY = ("tp", "coordinator", "state_dir")   # refused without --engine
+_ENGINE_ONLY = ("tp", "coordinator")   # refused without --engine
 
 
 def get_args(argv=None):
@@ -123,11 +129,25 @@ def get_args(argv=None):
     p.add_argument("--llm_path", default=None, help="HF Qwen2 dir")
     p.add_argument("--config", default=None,
                    help="reference app YAML or a config tree (YAML/JSON)")
+    p.add_argument("--voice_wav", default=None,
+                   help="voice prompt: a reference wav whose TiCodec global "
+                        "style tokens condition all synthesized speech")
+    p.add_argument("--lora", default=None,
+                   help="LoRA adapter .npz, merged into the LLM weights at "
+                        "boot (dequantize, merge, requantize for a quantized "
+                        "LLM)")
+    p.add_argument("--lora_scale", type=float, default=None,
+                   help="override the merge scale stored in the adapter")
+    p.add_argument("--state_dir", default=None,
+                   help="serving snapshot dir (needs --engine): restore the "
+                        "sessions saved there at boot and snapshot every "
+                        "live session's context at shutdown; a client that "
+                        "reconnects with its sid resumes")
+    p.add_argument("--resume_grace", type=float, default=300.0,
+                   help="seconds a restored session waits for its client "
+                        "before its slot is reclaimed")
     # flags of the JAX server that wait for later work (see _WAITING)
-    for flag in ("voice_wav", "lora", "state_dir", "coordinator"):
-        p.add_argument(f"--{flag}", default=None)
-    p.add_argument("--lora_scale", type=float, default=None)
-    p.add_argument("--resume_grace", type=float, default=None)
+    p.add_argument("--coordinator", default=None)
     for flag in ("tp", "num_hosts", "host_id"):
         p.add_argument(f"--{flag}", type=int, default=None)
     return p.parse_args(argv)
@@ -144,6 +164,11 @@ class Server:
                         and not args.engine else "")
                 raise SystemExit(f"--{flag} is not in the PyTorch port yet: "
                                  f"it waits for {item}{need}")
+        if args.state_dir and not args.engine:
+            # the JAX server's reason, word for word
+            raise SystemExit("--state_dir requires --engine and is "
+                             "single-host (the snapshot fetch/import are not "
+                             "wired through the lockstep bundles at boot)")
         self.args = args
         self.device = resolve_device(args.device)
         preset = tiny_system() if args.preset == "tiny" else flagship_system()
@@ -199,6 +224,24 @@ class Server:
             self.cfg = dataclasses.replace(
                 self.cfg, duplex=dataclasses.replace(
                     self.cfg.duplex, resp_threshold=args.resp_threshold))
+        if args.voice_wav:
+            # derive the voice's global style tokens once and put them in the
+            # config, so every synthesizer (responder, pool) speaks with them
+            tts_params = tts_params or self._init_tts_params(with_encoder=True)
+            self.cfg = _with_voice(self.cfg, tts_params["codec"], args.voice_wav)
+            print(f"voice prompt: global tokens "
+                  f"{self.cfg.tts.codec.global_tokens}", flush=True)
+        if args.lora:
+            if params is None:
+                # the tiny weightless preset: draw the f32 tree the serving
+                # core would draw, so there is one to merge into
+                params = audio_llm.init_params(
+                    self.cfg.audio_llm, seed=args.seed, device=self.device,
+                    llm_dtype=torch.float32)
+            params = dict(params)
+            params["llm"], scale = _merge_lora(params["llm"], args.lora,
+                                               args.lora_scale)
+            print(f"merged LoRA adapter {args.lora} (scale {scale})", flush=True)
         if args.respond:
             tts_params = tts_params or self._init_tts_params()
         else:
@@ -269,8 +312,10 @@ class Server:
             self._svc_stop.set()
             self._ticker_thread.join(timeout=timeout)
 
-    def _init_tts_params(self):
-        """Seeded random speech decoder + codec (decode half) on the device."""
+    def _init_tts_params(self, with_encoder: bool = False):
+        """Seeded random speech decoder + codec on the device (the codec's
+        decode half, and its encoder with `with_encoder`: the decode
+        weights are the same either way)."""
         from ..models import codec as codec_mod
         from ..models import speech_decoder as sd
 
@@ -278,7 +323,50 @@ class Server:
         return {"decoder": sd.init_params(self.cfg.tts.decoder, g,
                                           device=self.device),
                 "codec": codec_mod.init_params(self.cfg.tts.codec, g,
-                                               device=self.device)}
+                                               device=self.device,
+                                               with_encoder=with_encoder)}
+
+    def restore_snapshot(self) -> list:
+        """--state_dir at boot: import the sessions saved there, if any.
+        Returns the restored sids, which run() hands to evict_unclaimed."""
+        if not self.args.state_dir or self.service is None or not \
+                os.path.exists(os.path.join(self.args.state_dir, "sessions.json")):
+            return []
+        sids = self.service.engine.restore_sessions(self.args.state_dir)
+        print(f"restored {len(sids)} session(s) from {self.args.state_dir}: "
+              f"{sids}", flush=True)
+        return sids
+
+    async def evict_unclaimed(self, sids) -> list:
+        """After --resume_grace seconds, close the restored sessions among
+        `sids` that no client has reattached to, so they do not hold slots
+        (and reappear in every later snapshot) for good. Runs on the serving
+        loop, where the handler opens sessions too, so a reconnect cannot
+        fall between the check and the close. Returns the closed sids."""
+        await asyncio.sleep(self.args.resume_grace)
+        closed = []
+        for sid in sids:
+            if sid not in self.service.sessions and \
+                    self.service.engine.store.has(sid):
+                self.service.engine.close_session(sid)
+                closed.append(sid)
+                print(f"evicted unclaimed restored session {sid!r} after "
+                      f"{self.args.resume_grace:.0f}s", flush=True)
+        return closed
+
+    def snapshot(self) -> list:
+        """--state_dir at shutdown: stop the ticker (nothing may write the
+        rows while they are copied), deliver a tick still in flight under
+        --pipeline_ticks, then save every live session. Returns the saved
+        sids."""
+        if not self.args.state_dir or self.service is None:
+            return []
+        self.stop_ticker()
+        self.service.drain_ticks()
+        sids = self.service.engine.save_sessions(self.args.state_dir)
+        print(f"snapshotted {len(sids)} session(s) to {self.args.state_dir}",
+              flush=True)
+        return sids
 
     async def handler(self, ws):
         from ..duplex.events import EventSink
@@ -423,19 +511,52 @@ class Server:
         import websockets
 
         http_srv = self._start_http() if self.args.http_port else None
+        restored = self.restore_snapshot()
+        evictor = asyncio.get_running_loop().create_task(
+            self.evict_unclaimed(restored)) if restored else None
         try:
             async with websockets.serve(self.handler, self.args.host,
                                         self.args.port):
                 print(f"serving on ws://{self.args.host}:{self.args.port}",
                       flush=True)
-                if self.args.timeout:
-                    await asyncio.sleep(self.args.timeout)
-                else:
-                    await asyncio.Future()
+                try:
+                    if self.args.timeout:
+                        await asyncio.sleep(self.args.timeout)
+                    else:
+                        await asyncio.Future()
+                finally:
+                    # inside the serve context: leaving it closes every
+                    # connection and its session, so snapshot first
+                    self.snapshot()
         finally:
+            if evictor is not None:
+                evictor.cancel()
             self.stop_ticker()
             if http_srv is not None:
                 http_srv.shutdown()
+
+
+def _with_voice(cfg, codec_params: dict, voice_wav: str):
+    """cfg with the global style tokens of `voice_wav` as the codec's."""
+    from ..frontend.wav import read_wav
+    from ..tts import extract_global_tokens
+
+    wav, sr = read_wav(voice_wav)
+    if wav.ndim > 1:
+        wav = wav.mean(axis=1)
+    gst = extract_global_tokens(codec_params, cfg.tts.codec, wav, sr)
+    return dataclasses.replace(cfg, tts=dataclasses.replace(
+        cfg.tts, codec=dataclasses.replace(cfg.tts.codec, global_tokens=gst)))
+
+
+def _merge_lora(llm: dict, path: str, scale=None):
+    """(llm with the adapter at `path` merged, the scale used): the
+    adapter's own scale unless `scale` overrides it."""
+    from ..models import lora
+
+    tree, saved = lora.load(path)
+    scale = saved if scale is None else scale
+    return lora.merge(llm, tree, scale), scale
 
 
 def _jsonable(payload: dict) -> dict:

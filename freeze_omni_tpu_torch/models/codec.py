@@ -1,16 +1,18 @@
-"""TiCodec VQ-VAE codec, decode half (counterpart of
-freeze_omni_tpu/models/codec.py; models/decoder/ticodec/{models.py,vqvae.py}
-of the reference).
+"""TiCodec VQ-VAE codec (counterpart of freeze_omni_tpu/models/codec.py;
+models/decoder/ticodec/{models.py,vqvae.py} of the reference).
 
-`decode`: grouped/residual VQ embedding lookup + global-style-token
-embedding -> HiFiGAN-style generator (ConvTranspose upsampling x MRF
-resblocks, global feature injected at the matching channel depth) ->
-waveform (vqvae.py:37-42, models.py:169-242). Convolutions are plain PyTorch
-(cuDNN on the card) in NCW layout with weight norm folded, as the JAX
-package leaves them to XLA. Upsample product 600: 40 Hz tokens -> 24 kHz.
+- `decode`: grouped/residual VQ embedding lookup + global-style-token
+  embedding -> HiFiGAN-style generator (ConvTranspose upsampling x MRF
+  resblocks, global feature injected at the matching channel depth) ->
+  waveform (vqvae.py:37-42, models.py:169-242). The serving path.
+- `encode`: the mirrored conv encoder with GroupNorm and the mid-depth
+  global-token branch, then nearest-neighbour quantization (models.py:
+  429-514, 540-615): voice prompts (tts.extract_global_tokens) and the codec
+  round trip (bin/codec_tool.py).
 
-The encode half (`encode`, `quantize`, the encoder branch of init_params)
-serves voice prompts and training and is not ported yet.
+Convolutions are plain PyTorch (cuDNN on the card) in NCW layout with weight
+norm folded, as the JAX package leaves them to XLA. Upsample product 600:
+40 Hz tokens -> 24 kHz.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import torch.nn.functional as F
 
 from ..config import CodecConfig
 from ..utils.device import resolve_device
-from .layers import (_uniform, conv1d, conv1d_init, conv_transpose1d,
-                     conv_transpose1d_init, embedding)
+from .layers import (_uniform, batch_norm_eval, batch_norm_init, conv1d,
+                     conv1d_init, conv_transpose1d, conv_transpose1d_init,
+                     embedding, linear, linear_init)
 
 LRELU_SLOPE = 0.1
 
@@ -44,9 +47,11 @@ def _resblock1_init(gen, channels: int, kernel: int, dilations, dtype,
 
 
 def init_params(cfg: CodecConfig, gen: torch.Generator, dtype=torch.float32,
-                device=None) -> dict:
-    """Random decode-branch weights (generator + quantizer codebooks) drawn
-    from `gen` on `device` (None: the card), in the JAX tree layout."""
+                device=None, with_encoder: bool = False) -> dict:
+    """Random weights drawn from `gen` on `device` (None: the card), in the
+    JAX tree layout: the decode branch (generator + quantizer codebooks),
+    and with `with_encoder` the encoder branch, drawn after every decode
+    leaf so the decode weights of a seed do not depend on it."""
     device = resolve_device(device)
     uic = cfg.upsample_initial_channel
     ups, resblocks = [], []
@@ -71,8 +76,43 @@ def init_params(cfg: CodecConfig, gen: torch.Generator, dtype=torch.float32,
     g_dim = cfg.global_feature_dim // cfg.global_code_num
     gst = _uniform(gen, (cfg.global_code_num, cfg.n_codes, g_dim), cb_bound,
                    dtype, device)
-    return {"generator": generator,
-            "quantizer": {"codebooks": codebooks, "gst": gst}}
+    params = {"generator": generator,
+              "quantizer": {"codebooks": codebooks, "gst": gst}}
+    if with_encoder:
+        params["encoder"] = _encoder_init(cfg, gen, dtype, device)
+    return params
+
+
+def _encoder_init(cfg: CodecConfig, gen, dtype, device) -> dict:
+    """The encoder branch: the generator's stages mirrored (channels 32 ->
+    32 * 2^n), a GroupNorm after every resblock, and the global-token
+    encoder (models.py:429-514, 22-57)."""
+    kw = dict(dtype=dtype, device=device)
+    ups, resblocks, norms = [], [], []
+    rev = list(reversed(list(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes))))
+    for i, (_, k) in enumerate(rev):
+        ups.append(conv1d_init(gen, 32 * 2 ** i, 32 * 2 ** (i + 1), k, **kw))
+        ch = 32 * 2 ** (i + 1)
+        for rk, rd in zip(reversed(cfg.resblock_kernel_sizes),
+                          reversed(cfg.resblock_dilation_sizes)):
+            resblocks.append(_resblock1_init(gen, ch, rk, rd, dtype, device))
+            norms.append({"scale": torch.ones(ch, **kw),
+                          "bias": torch.zeros(ch, **kw)})
+    gfc = cfg.global_feature_conv
+    return {
+        "conv_pre": conv1d_init(gen, 1, 32, 7, **kw),
+        "ups": ups,
+        "resblocks": resblocks,
+        "group_norms": norms,
+        "conv_post": conv1d_init(gen, 512, 512, 3, **kw),
+        "gte": {
+            "conv1": conv1d_init(gen, gfc[0], gfc[1], gfc[3], bias=False, **kw),
+            "conv2": conv1d_init(gen, gfc[1], gfc[1], gfc[3], bias=False, **kw),
+            "conv3": conv1d_init(gen, gfc[1], gfc[2], gfc[3], bias=False, **kw),
+            "fn": linear_init(gen, gfc[2], gfc[2], **kw),
+            "bn": batch_norm_init(gfc[2], **kw),
+        },
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +138,49 @@ def quantizer_embed_gst(params, cfg: CodecConfig, tokens: torch.Tensor) -> torch
     groups = [embedding({"w": params["gst"][g]}, tokens[:, 0, g].long())
               for g in range(cfg.global_code_num)]
     return torch.cat(groups, dim=-1)
+
+
+def codeword_distances(codebook: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """codebook [n, d], x [N, d] -> [N, n]: |x|^2 + |c|^2 - 2 x.c in f32, as
+    the JAX version computes it. On the card the product is f32 unless the
+    process turned TF32 on (torch.backends.cuda.matmul.allow_tf32, off by
+    default), so the card and the CPU differ only by f32 rounding."""
+    x, codebook = x.float(), codebook.float()
+    return ((x * x).sum(1, keepdim=True) + (codebook * codebook).sum(1)
+            - 2.0 * x @ codebook.T)
+
+
+def _nearest(codebook: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """codebook [n, d], x [N, d] -> indices [N] of the nearest codewords
+    (codeword_distances); the card and the CPU can pick differently only
+    where two codewords are within f32 rounding of each other (a
+    near-tie)."""
+    return torch.argmin(codeword_distances(codebook, x), dim=1)
+
+
+def quantize(params, cfg: CodecConfig, features: torch.Tensor,
+             global_features: torch.Tensor):
+    """features [B, 512, T], global [B, 128] -> (codes [B, T, Nq] int64,
+    gst [B, 1, G] int64): residual groups, each the nearest codeword of
+    what the earlier layers left."""
+    B, C, T = features.shape
+    G = cfg.n_code_groups
+    gd = C // G
+    residual = features.transpose(1, 2).reshape(-1, C)   # [B*T, 512]
+    all_codes = []
+    for r in range(cfg.residual_layers):
+        qs = []
+        for g in range(G):
+            cb = params["codebooks"][r][g]
+            idx = _nearest(cb, residual[:, g * gd:(g + 1) * gd])
+            all_codes.append(idx)
+            qs.append(cb[idx])
+        residual = residual - torch.cat(qs, dim=-1)
+    codes = torch.stack(all_codes, -1).reshape(B, T, -1)
+    ggd = cfg.global_feature_dim // cfg.global_code_num
+    gidx = [_nearest(params["gst"][g], global_features[:, g * ggd:(g + 1) * ggd])
+            for g in range(cfg.global_code_num)]
+    return codes, torch.stack(gidx, -1)[:, None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -142,3 +225,63 @@ def decode(params, cfg: CodecConfig, codes: torch.Tensor,
     quant = quantizer_embed(params["quantizer"], cfg, codes)
     gemb = quantizer_embed_gst(params["quantizer"], cfg, global_tokens)
     return generate(params, cfg, quant, gemb)
+
+
+# ---------------------------------------------------------------------------
+# encoder (encode)
+# ---------------------------------------------------------------------------
+
+
+def _group_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x: [B, C, T]; torch GroupNorm with C/16 groups (models.py:446-447),
+    the group count derived from the channel dim as in the JAX version."""
+    B, C, T = x.shape
+    g = C // 16
+    xg = x.reshape(B, g, C // g * T)
+    mean = xg.mean(dim=-1, keepdim=True)
+    var = xg.var(dim=-1, unbiased=False, keepdim=True)
+    x = ((xg - mean) * torch.rsqrt(var + eps)).reshape(B, C, T)
+    return x * p["scale"][None, :, None] + p["bias"][None, :, None]
+
+
+def _global_token_encoder(p, cfg: CodecConfig, x: torch.Tensor) -> torch.Tensor:
+    """x: [B, gfc0, T] -> [B, gfc2] (models.py:22-57)."""
+    gfc = cfg.global_feature_conv
+    pad = ((gfc[3] - gfc[4]) // 2,) * 2
+    for name in ("conv1", "conv2", "conv3"):
+        x = _lrelu(conv1d(p[name], x, stride=gfc[4], padding=pad))
+    x = _lrelu(linear(p["fn"], x.mean(dim=2)))
+    return batch_norm_eval(p["bn"], x, eps=1e-5, channel_axis=1)
+
+
+def encode_features(params, cfg: CodecConfig, wav: torch.Tensor):
+    """wav: [B, 1, n] -> (features [B, 512, n/600], global [B, 128])
+    (Encoder.forward, models.py:475-514)."""
+    e = params["encoder"]
+    nk = len(cfg.resblock_kernel_sizes)
+    n_ups = len(cfg.upsample_rates)
+    rev = list(reversed(list(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes))))
+    rks = list(reversed(cfg.resblock_kernel_sizes))
+    rds = list(reversed(cfg.resblock_dilation_sizes))
+    x = conv1d(e["conv_pre"], wav, padding=(3, 3))
+    global_features = None
+    for i, (u, k) in enumerate(rev):
+        x = conv1d(e["ups"][i], _lrelu(x), stride=u, padding=((k - u) // 2,) * 2)
+        xs = None
+        for j in range(nk):
+            r = _resblock1(e["resblocks"][i * nk + j], x, rds[j], rks[j])
+            r = _group_norm(e["group_norms"][i * nk + j], r)
+            xs = r if xs is None else xs + r
+        x = xs / nk
+        if i == n_ups // 2 - 1:
+            global_features = _global_token_encoder(e["gte"], cfg, x)
+    # F.leaky_relu's default slope 0.01 here (models.py:493)
+    x = conv1d(e["conv_post"], F.leaky_relu(x), padding=(1, 1))
+    return x, global_features
+
+
+def encode(params, cfg: CodecConfig, wav: torch.Tensor):
+    """wav: [B, 1, n] -> (codes [B, T, Nq], global_tokens [B, 1, G])
+    (VQVAE.encode, vqvae.py:44-57)."""
+    feats, gfeat = encode_features(params, cfg, wav)
+    return quantize(params["quantizer"], cfg, feats, gfeat)

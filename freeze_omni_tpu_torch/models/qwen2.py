@@ -84,14 +84,43 @@ def quantize_kv_vectors(x: torch.Tensor):
     return q, s
 
 
+def _requantize_vectors(x: torch.Tensor):
+    """quantize_kv_vectors for values that may be dequantized int8 vectors
+    (codes times a scale): such a vector gets its codes and scale back
+    exactly. Its scale is one of the three f32 neighbours of max|x| / 127
+    (the quantizer's own rounding, and on the card its multiply by 1/127,
+    can move it by an ulp); the first that reproduces every value of the
+    vector from integer codes is taken. Any other vector (a zero one
+    included) is quantized as quantize_kv_vectors does."""
+    xf = x.float()
+    q_out, s_out = quantize_kv_vectors(xf)
+    amax = xf.abs().amax(dim=-1)
+    c0 = amax / torch.full_like(amax, 127.0)   # a true division on the card too
+    found = torch.zeros_like(amax, dtype=torch.bool)
+    for c in (c0, torch.nextafter(c0, torch.zeros_like(c0)),
+              torch.nextafter(c0, torch.full_like(c0, float("inf")))):
+        q = torch.clamp(torch.round(xf / c[..., None]), -127, 127)
+        exact = (amax > 0) & ((q * c[..., None]) == xf).all(dim=-1) & ~found
+        q_out = torch.where(exact[..., None], q.to(torch.int8), q_out)
+        s_out = torch.where(exact, c, s_out)
+        found |= exact
+    return q_out, s_out
+
+
 def quantize_cache(kv: KVCache, quant_bits: int = 8) -> KVCache:
-    """Float cache -> new int8 cache (per-token-per-head scales)."""
+    """Float cache -> new int8 cache (per-token-per-head scales). Floats
+    that came from an int8 cache (dequantize_cache) get their codes and
+    scales back exactly, so a session exported in float layout resumes in
+    an int8 store as it left (see _requantize_vectors); other floats are
+    quantized as quantize_kv_vectors does. Only the scratch slot S-1, where
+    masked tokens land together, may hold codes and a scale of different
+    tokens; it is requantized and stays out of sight."""
     if kv.k_scale is not None:
         return kv
     if quant_bits != 8:
         raise ValueError(f"unsupported kv quant_bits {quant_bits!r}")
-    kq, ks = quantize_kv_vectors(kv.k)
-    vq, vs = quantize_kv_vectors(kv.v)
+    kq, ks = _requantize_vectors(kv.k)
+    vq, vs = _requantize_vectors(kv.v)
     return KVCache(k=kq, v=vq, length=kv.length.clone(), k_scale=ks, v_scale=vs)
 
 

@@ -20,12 +20,19 @@ shared pipeline._Core hands out per call (or one the caller passes).
 `TTSPool` and `PipelinePool` keep the API of the reference's replica pools
 (bin/pool.py) over shared weights and one engine.
 
-Left out of the port for now: mesh sharding, buffer donation and session
-export/import.
+`export_session` / `import_session` move a live session between engines
+(its caches as host arrays, the KV in float layout), and `save_sessions` /
+`restore_sessions` write and read every live session to a directory in the
+JAX package's snapshot format (serving checkpoint and resume).
+
+Left out of the port for now: mesh sharding and buffer donation.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import sys
 import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -36,7 +43,9 @@ from ..config import SystemConfig
 from ..models import audio_llm, qwen2
 from ..pipeline import _Core
 from ..utils.device import resolve_device
-from .session import SessionStore
+from .session import SessionStore, row_from_leaves, row_leaves
+
+SNAPSHOT_VERSION = 1
 
 IDENTITIES = ("user", "system")
 
@@ -119,6 +128,7 @@ class ServingEngine:
             i: {} for i in IDENTITIES}
         self._callbacks: Dict[int, Callable[[str, dict], None]] = {}
         self._role_kv_cache: Dict[str, qwen2.KVCache] = {}
+        self._slot_role: Dict[int, str] = {}
         # host mirror of kv.length, advanced exactly at submit time so the
         # roll check needs no device read per tick
         self._len_host: Optional[np.ndarray] = None
@@ -156,12 +166,130 @@ class ServingEngine:
         with self._lock:
             existing = self.store.has(sid)  # an open sid keeps its row
             slot = self.store.alloc(sid, self._role_kv_cache[role])
+            if existing:
+                # a reattach (a client reconnecting to a restored session)
+                # keeps the role its row was prefilled with
+                role = self._slot_role.get(slot, role)
+            self._slot_role[slot] = role
             if on_prediction is not None:
                 self._callbacks[slot] = on_prediction
             if self._len_host is not None:
                 self._len_host[slot] = self.store.kv_length(slot) if existing \
                     else self.store.prefix_len[slot]
         return slot
+
+    def export_session(self, sid: str) -> dict:
+        """A live session as host numpy: its whole cache row (encoder window,
+        adapter state, LLM KV, pe_index) with the KV in float layout (an
+        int8 row is dequantized to f32) and bf16 leaves widened to f32,
+        plus the metadata to resume it on another engine, whatever its KV
+        layout. The rows are written in place, so the row is copied under
+        the engine lock; in-flight response work is not captured."""
+        with self._lock:
+            slot = self.store.slot_of(sid)
+            role = self._slot_role.get(slot)
+            prefix_len = int(self.store.prefix_len[slot])
+            row = self.store.gather_slot(slot)
+        if self.store.kv_quant_bits is not None:
+            row = row._replace(kv=qwen2.dequantize_cache(row.kv, torch.float32))
+        leaves = [(t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+                  for t in row_leaves(row)]
+        return {"version": SNAPSHOT_VERSION, "sid": sid, "role": role,
+                "prefix_len": prefix_len, "caches": row_from_leaves(row, leaves)}
+
+    def _import_row(self, caches) -> audio_llm.SessionCaches:
+        """An exported row (either package's, NamedTuples of arrays) in this
+        store's layout on the device. A quantized store's KV is quantized
+        from the exported f32 values with qwen2.quantize_cache, which
+        gives a row exported from an int8 store its codes and scales back
+        exactly (the JAX engine casts to its float dtype and quantizes
+        afresh: at bf16 a code can move by one, and a scale by an ulp)."""
+        template = self.store.row_template_canonical
+        src = [np.asarray(x) for x in row_leaves(caches)]
+        dtypes = [t.dtype for t in row_leaves(template)]
+        if len(src) != len(dtypes):
+            raise ValueError(f"a session row of {len(src)} leaves; this "
+                             f"store's rows have {len(dtypes)}")
+        bits = self.store.kv_quant_bits
+        if bits is not None:   # the last leaves are kv.k, kv.v, kv.length
+            dtypes[-3] = dtypes[-2] = torch.float32
+        row = row_from_leaves(template, [
+            # ml_dtypes bfloat16 (kind V, from a JAX export) widens losslessly
+            torch.from_numpy(np.ascontiguousarray(
+                x.astype(np.float32) if x.dtype.kind == "V" else x)
+            ).to(self.device, dt) for x, dt in zip(src, dtypes)])
+        if bits is not None:
+            row = row._replace(kv=qwen2.quantize_cache(row.kv, bits))
+        return row
+
+    def import_session(self, sid: str, blob: dict,
+                       on_prediction: Optional[Callable] = None) -> int:
+        """Resume an exported session (see export_session) in this engine."""
+        if blob.get("version") != SNAPSHOT_VERSION:
+            raise ValueError(f"unknown session blob version "
+                             f"{blob.get('version')!r}")
+        row = self._import_row(blob["caches"])
+        with self._lock:
+            slot = self.store.alloc(sid, reset=False)   # the scatter follows
+            self._slot_role[slot] = blob.get("role") or \
+                self.cfg.duplex.default_prompt
+            if on_prediction is not None:
+                self._callbacks[slot] = on_prediction
+            self.store.scatter_slot(slot, row)
+            self.store.prefix_len[slot] = int(blob["prefix_len"])
+            if self._len_host is not None:
+                self._len_host[slot] = int(row.kv.length[0])
+        return slot
+
+    def save_sessions(self, dirpath: str) -> List[str]:
+        """Snapshot every live session to `dirpath`: one .npz of cache leaves
+        per session (`leaf_j` in jax.tree.leaves order) and a sessions.json
+        index, the JAX engine's format. With restore_sessions a restarted
+        server keeps every dialog's KV context. Nothing may write the rows
+        meanwhile: stop the ticker first."""
+        os.makedirs(dirpath, exist_ok=True)
+        with self._lock:
+            sids = list(self.store.active_sids)
+        index = {}
+        for i, sid in enumerate(sids):
+            try:
+                blob = self.export_session(sid)
+            except KeyError:   # closed since
+                continue
+            fn = f"session-{i:04d}.npz"
+            np.savez(os.path.join(dirpath, fn),
+                     **{f"leaf_{j}": leaf for j, leaf in
+                        enumerate(row_leaves(blob["caches"]))})
+            index[sid] = {"file": fn, "role": blob["role"],
+                          "prefix_len": blob["prefix_len"]}
+        with open(os.path.join(dirpath, "sessions.json"), "w") as f:
+            json.dump({"version": SNAPSHOT_VERSION, "sessions": index}, f)
+        return list(index)
+
+    def restore_sessions(self, dirpath: str) -> List[str]:
+        """Import every session that save_sessions (of either package) wrote
+        to `dirpath`. A store too small for the snapshot restores what fits
+        and says so instead of failing."""
+        with open(os.path.join(dirpath, "sessions.json")) as f:
+            index = json.load(f)
+        if index.get("version") != SNAPSHOT_VERSION:
+            raise ValueError(f"unknown snapshot version {index.get('version')!r}")
+        template = self.store.row_template_canonical
+        restored = []
+        for sid, meta in index["sessions"].items():
+            if not self.store.has_free() and not self.store.has(sid):
+                print(f"restore_sessions: store full, skipping {sid!r} (and "
+                      f"{len(index['sessions']) - len(restored) - 1} more)",
+                      file=sys.stderr, flush=True)
+                break
+            with np.load(os.path.join(dirpath, meta["file"])) as z:
+                leaves = [z[f"leaf_{j}"] for j in range(len(z.files))]
+            self.import_session(sid, {
+                "version": SNAPSHOT_VERSION, "sid": sid, "role": meta["role"],
+                "prefix_len": meta["prefix_len"],
+                "caches": row_from_leaves(template, leaves)})
+            restored.append(sid)
+        return restored
 
     def close_session(self, sid: str) -> None:
         """Idempotent: closing an unknown or closed sid is a no-op."""

@@ -179,23 +179,7 @@ class DuplexService:
             worked = worked or bool(results) or bool(submitted)
         else:
             results = self.engine.tick()
-        respondents: List[str] = []
-        for sid, feat in submitted.items():
-            try:  # the session may close concurrently (websocket thread)
-                slot = self.engine.store.slot_of(sid)
-            except KeyError:
-                continue
-            pred = results.get("user", {}).get(slot)
-            if pred is None:
-                continue
-            fe = sessions.get(sid)  # pipelined: submitted is one tick old
-            if fe is not None and self._decide(fe, feat, pred):
-                respondents.append(sid)
-        if respondents:
-            # all sessions that decided to speak this tick share ONE batched
-            # engine.respond_fast_many instead of serial per-session
-            # generations on the tick thread
-            self._respond_fast_many(respondents)
+        self._decide_all(results, submitted, sessions)
         if self._pipeline:
             # capacity mode: the text continuation and the synthesis-pool
             # advance are enqueued back to back, then both deliver: the host
@@ -221,6 +205,25 @@ class DuplexService:
         if self._advance_tts():
             worked = True
         return worked
+
+    def _decide_all(self, results, submitted: Dict[str, dict], sessions) -> None:
+        """Run the decisions of a delivered tick; every session that decided
+        to speak shares ONE batched engine.respond_fast_many instead of
+        serial per-session generations on the tick thread."""
+        respondents: List[str] = []
+        for sid, feat in submitted.items():
+            try:  # the session may close concurrently (websocket thread)
+                slot = self.engine.store.slot_of(sid)
+            except KeyError:
+                continue
+            pred = results.get("user", {}).get(slot)
+            if pred is None:
+                continue
+            fe = sessions.get(sid)  # pipelined: submitted is one tick old
+            if fe is not None and self._decide(fe, feat, pred):
+                respondents.append(sid)
+        if respondents:
+            self._respond_fast_many(respondents)
 
     # ------------------------------------------------------------------
 
@@ -493,10 +496,14 @@ class DuplexService:
             fe.pcm["system"].push(np.asarray(pcm16, np.float32))
 
     def drain_ticks(self) -> None:
-        """Deliver the in-flight tick (pipelined mode) and run its decisions.
-        Call before checkpoint/shutdown so no prediction is dropped."""
+        """Deliver the in-flight tick (pipelined mode) and run its decisions,
+        without taking new audio. Call with the ticker stopped, before a
+        snapshot or shutdown, so no prediction is dropped."""
         if self._pipeline and self._pending_tick is not None:
-            self.step()
+            (handle, submitted), self._pending_tick = self._pending_tick, None
+            with self._lock:
+                sessions = dict(self.sessions)
+            self._decide_all(handle.deliver(), submitted, sessions)
 
     def flush_tts(self, timeout: float = 30.0) -> None:
         """Drain queued/in-flight sentence synthesis (tests/teardown): keep

@@ -5,6 +5,11 @@ One resident model serves every session; all sessions' caches live batched
 along a leading session axis in ONE preallocated `SessionCaches`, and a slot
 allocator maps session ids to rows. Where the JAX store rebuilds the pytree
 functionally, this one writes rows in place.
+
+`row_leaves` / `row_from_leaves` flatten a `SessionCaches` row in the leaf
+order of `jax.tree.leaves` (NamedTuple fields in declaration order, None
+fields skipped), the order of a serving snapshot's files, so a snapshot
+written by either package restores in the other.
 """
 
 from __future__ import annotations
@@ -26,6 +31,31 @@ _KV_AXES = qwen2.KVCache(k=1, v=1, length=0, k_scale=1, v_scale=1)
 BATCH_AXES = audio_llm.SessionCaches(enc_user=_ENC_AXES, adp_user=_ADP_AXES,
                                      enc_system=_ENC_AXES, adp_system=_ADP_AXES,
                                      kv=_KV_AXES)
+
+
+def row_leaves(row) -> list:
+    """The non-None leaves of a caches tree (NamedTuples of tensors or
+    arrays), depth first in field order: `jax.tree.leaves`' order."""
+    if isinstance(row, tuple):
+        return [leaf for field in row for leaf in row_leaves(field)]
+    return [] if row is None else [row]
+
+
+def row_from_leaves(template, leaves):
+    """The inverse of `row_leaves`: `template`'s structure (None fields stay
+    None) filled from `leaves` in order. Raises when the counts differ."""
+    leaves = list(leaves)
+    if len(leaves) != len(row_leaves(template)):
+        raise ValueError(f"{len(leaves)} leaves for a row of "
+                         f"{len(row_leaves(template))}")
+    it = iter(leaves)
+
+    def rec(node):
+        if isinstance(node, tuple):
+            return type(node)(*[rec(f) for f in node])
+        return None if node is None else next(it)
+
+    return rec(template)
 
 
 def map_rows(fn, axes, *trees):
@@ -55,16 +85,22 @@ class SessionStore:
         # pinned role-prefill length per slot (the sliding-KV "sink" prefix)
         self.prefix_len = np.zeros((max_sessions,), np.int32)
 
-    def alloc(self, sid: str, role_kv: Optional[qwen2.KVCache] = None) -> int:
-        """Claim a slot (an open sid keeps its slot), zero its row and
-        optionally seed its LLM KV row from a batch-1 role prefill."""
+    def alloc(self, sid: str, role_kv: Optional[qwen2.KVCache] = None,
+              reset: bool = True) -> int:
+        """Claim a slot (an open sid keeps its slot and its row), zero its row
+        and optionally seed its LLM KV row from a batch-1 role prefill.
+        reset=False skips the row writes for a caller that scatters a whole
+        row next (an import)."""
         if sid in self._slots:
             return self._slots[sid]
         if not self._free:
             raise RuntimeError("no free session slots")
         slot = self._free.pop(0)
         self._slots[sid] = slot
-        self.reset_slot(slot, role_kv)
+        if reset:
+            self.reset_slot(slot, role_kv)
+        else:
+            self.prefix_len[slot] = 0
         return slot
 
     def free(self, sid: str) -> None:
@@ -77,6 +113,9 @@ class SessionStore:
 
     def has(self, sid: str) -> bool:
         return sid in self._slots
+
+    def has_free(self) -> bool:
+        return bool(self._free)
 
     @property
     def active_sids(self):
@@ -91,6 +130,16 @@ class SessionStore:
             map_rows(lambda ax, full, row: full.narrow(ax, slot, 1).copy_(row),
                      _KV_AXES, self.caches.kv, role_kv)
             self.prefix_len[slot] = int(role_kv.length[0])
+
+    @property
+    def row_template_canonical(self) -> audio_llm.SessionCaches:
+        """A zeroed batch-1 row with the KV in the float layout, no scales:
+        the layout of an exported session, whatever the store's kv_quant
+        (an import quantizes to this store's layout). Allocated on the
+        host."""
+        return audio_llm.init_session(self.cfg, 1,
+                                      self.caches.enc_user.k_cache.dtype,
+                                      None, "cpu")
 
     def kv_length(self, slot: int) -> int:
         return int(self.caches.kv.length[slot])

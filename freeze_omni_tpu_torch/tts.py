@@ -8,10 +8,9 @@ splicing (counterpart of freeze_omni_tpu/tts.py; models/decoder/llm2tts.py:
   last token) and trimmed back in samples, as the JAX package does to bound
   its compiled shapes; the padding keeps the port's output identical;
 - seam splicing (`find_min_seam`), the quiet-point search that joins codec
-  chunks without clicks (llm2tts.py:70-112), runs on the host in numpy.
-
-`extract_global_tokens` (voice prompts) needs the codec's encode half and is
-not ported yet.
+  chunks without clicks (llm2tts.py:70-112), runs on the host in numpy;
+- `extract_global_tokens` turns a reference wav into the codec's global
+  style tokens (a voice prompt) through the codec's encode half.
 """
 
 from __future__ import annotations
@@ -207,3 +206,40 @@ class StreamingTTS:
             syn = vocode(self.params["codec"], cfg.codec, self._global_tokens,
                          [token_buf])[0]
             yield np.concatenate([pcm_buffer, syn[:, :, left * up:]], axis=-1)
+
+
+def codec_input(ccfg, wav: np.ndarray, sr: int) -> np.ndarray:
+    """A mono wav as the codec encoder takes it: resampled to the codec's
+    rate and zero-padded to whole frames (the conv stack downsamples by
+    upsample_rate), f32 [T]."""
+    from .frontend.wav import resample
+
+    wav = np.asarray(wav, np.float32).reshape(-1)
+    if sr != ccfg.sample_rate:
+        wav = resample(wav, sr, ccfg.sample_rate)
+    up = ccfg.upsample_rate
+    n = -(-max(wav.shape[0], up) // up) * up
+    return np.pad(wav, (0, n - wav.shape[0]))
+
+
+def extract_global_tokens(codec_params: dict, ccfg, wav: np.ndarray,
+                          sr: int) -> tuple:
+    """Voice prompt: TiCodec global-style tokens of a reference wav.
+
+    The codec's mid-depth global branch summarizes timbre into GST ids
+    (models.py:475-514, 617-637); synthesizing with them transfers the
+    reference speaker's style. Needs codec params with the encoder branch
+    (codec.init_params(..., with_encoder=True) or utils/checkpoint
+    convert_codec(with_encoder=True)); runs on the params' device. Returns a
+    tuple of ints for CodecConfig.global_tokens or
+    StreamingTTS.set_global_tokens."""
+    if "encoder" not in codec_params:
+        raise ValueError(
+            "codec params lack the encoder branch; build them with "
+            "with_encoder=True to use a voice prompt")
+    wav = codec_input(ccfg, wav, sr)
+    dev = codec_params["encoder"]["conv_pre"]["w"].device
+    with torch.no_grad():
+        _, gst = codec_mod.encode(codec_params, ccfg,
+                                  torch.from_numpy(wav[None, None, :]).to(dev))
+    return tuple(int(t) for t in gst.cpu().numpy().ravel())

@@ -87,3 +87,73 @@ def test_init_params_mirror_the_jax_decode_tree():
     tshapes = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[-1]),
                            tp)
     assert tshapes == jshapes
+
+
+@pytest.fixture(scope="module")
+def encoder_codec():
+    """The tiny codec with its encoder branch, drawn by the JAX initializer
+    (the trained checkpoint has none), in both packages."""
+    jcfg = jcfg_mod.tiny_system().tts.codec
+    jp = jax.tree.map(np.asarray, jcodec.init_params(jax.random.PRNGKey(3), jcfg,
+                                                     with_encoder=True))
+    return jp, weights.from_jax(jp, device="cpu"), jcfg, tcfg_mod.tiny_system().tts.codec
+
+
+def test_encode_matches_jax(encoder_codec):
+    """encode_features within 1e-4 (f32 convolutions, GroupNorm, the global
+    branch); the residual codes and global-style-token ids identical."""
+    jp, tp, jcfg, tcfg = encoder_codec
+    wav = (0.3 * np.random.RandomState(1).randn(2, 1, 20 * tcfg.upsample_rate)
+           ).astype(np.float32)
+    jf, jg = jax.jit(jcodec.encode_features, static_argnames="cfg")(
+        jp, jcfg, jnp.asarray(wav))
+    j_codes, j_gst = jcodec.quantize(jp["quantizer"], jcfg, jf, jg)
+    with torch.no_grad():
+        tf, tg = tcodec.encode_features(tp, tcfg, torch.from_numpy(wav))
+        t_codes, t_gst = tcodec.encode(tp, tcfg, torch.from_numpy(wav))
+    assert tuple(tf.shape) == jf.shape and jf.shape[:2] == (2, 512)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=0, atol=1e-4)
+    assert tuple(t_codes.shape) == j_codes.shape and tuple(t_gst.shape) == j_gst.shape
+    np.testing.assert_array_equal(t_codes.numpy(), np.asarray(j_codes))
+    np.testing.assert_array_equal(t_gst.numpy(), np.asarray(j_gst))
+
+
+def test_extract_global_tokens_matches_jax(encoder_codec, monkeypatch):
+    """A 16 kHz dev wav, resampled to the codec's rate and padded to whole
+    frames by each package: the same voice tokens; a codec without the
+    encoder branch is refused."""
+    from freeze_omni_tpu import tts as jtts
+    from freeze_omni_tpu.frontend import native as jnative
+    from freeze_omni_tpu_torch import tts as ttts
+    from freeze_omni_tpu_torch.frontend.wav import read_wav
+
+    monkeypatch.setattr(jnative, "available", lambda: False)   # numpy resampler
+    jp, tp, jcfg, tcfg = encoder_codec
+    wav, sr = read_wav(os.path.join(ASSET, "dev_wavs", "qa_001.wav"))
+    assert sr == 16000 != tcfg.sample_rate
+    got = ttts.extract_global_tokens(tp, tcfg, wav, sr)
+    assert got == jtts.extract_global_tokens(jp, jcfg, wav, sr)
+    assert len(got) == tcfg.global_code_num
+    with pytest.raises(ValueError, match="encoder branch"):
+        ttts.extract_global_tokens({k: tp[k] for k in ("generator", "quantizer")},
+                                   tcfg, wav, sr)
+
+
+def test_init_params_with_encoder_keeps_the_decode_draw():
+    """The encoder leaves are drawn after every decode leaf: a seed's decode
+    weights are the same with and without the encoder, and the encoder tree
+    has the JAX layout."""
+    jcfg = jcfg_mod.tiny_system().tts.codec
+    tcfg = tcfg_mod.tiny_system().tts.codec
+    plain = tcodec.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    full = tcodec.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu",
+                              with_encoder=True)
+    for a, b in zip(jax.tree.leaves(plain), jax.tree.leaves(
+            {k: full[k] for k in plain})):
+        assert torch.equal(a, b)
+    jshapes = jax.tree.map(lambda a: (a.shape, str(a.dtype)), jcodec.init_params(
+        jax.random.PRNGKey(0), jcfg, with_encoder=True)["encoder"])
+    tshapes = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[-1]),
+                           full["encoder"])
+    assert tshapes == jshapes

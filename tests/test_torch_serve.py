@@ -8,6 +8,7 @@ import base64
 import json
 import os
 import socket
+import threading
 import time
 
 import jax
@@ -197,11 +198,6 @@ def test_checkpoint_flags_load(kind, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--engine", "--voice_wav", "v.wav"], "D4"),
-    (["--engine", "--lora", "a.npz"], "D4"),
-    (["--engine", "--lora_scale", "0.5"], "D4"),
-    (["--engine", "--state_dir", "s"], "D5"),
-    (["--engine", "--resume_grace", "10"], "D5"),
     (["--engine", "--tp", "2"], "D9"),
     (["--engine", "--coordinator", "h:1"], "D9"),
     (["--engine", "--num_hosts", "2"], "D9"),
@@ -212,15 +208,15 @@ def test_waiting_flags_exit_naming_their_roadmap_item(argv, item):
         serve.Server(serve.get_args(["--preset", "tiny", "--device", "cpu", *argv]))
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--tp", "2"], "D9"),
-    (["--coordinator", "h:1"], "D9"),
-    (["--state_dir", "s"], "D5"),
+@pytest.mark.parametrize("argv,reason", [
+    (["--tp", "2"], "ROADMAP.md D9 .*, and it needs --engine"),
+    (["--coordinator", "h:1"], "ROADMAP.md D9 .*, and it needs --engine"),
+    (["--state_dir", "s"], "^--state_dir requires --engine and is single-host"),
 ])
-def test_engine_only_flags_exit_without_engine(argv, item):
-    """As in the JAX server, these need --engine; they also wait for their
-    ROADMAP item."""
-    with pytest.raises(SystemExit, match=f"ROADMAP.md {item} .*, and it needs --engine"):
+def test_engine_only_flags_exit_without_engine(argv, reason):
+    """As in the JAX server, these need --engine; the multi-GPU ones also
+    wait for their ROADMAP item, and --state_dir gives the JAX reason."""
+    with pytest.raises(SystemExit, match=reason):
         serve.Server(serve.get_args(["--preset", "tiny", "--device", "cpu", *argv]))
 
 
@@ -300,3 +296,341 @@ def test_per_session_server_over_websocket():
         time.sleep(0.05)   # the handler releases the session on stop
     assert session._worker is None
     assert int(session.past_key_values.length[0]) == session._role_len
+
+
+VOICE = os.path.join(os.path.dirname(__file__), "..", "freeze_omni_tpu", "assets",
+                     "tiny_s2s", "dev_wavs", "asr_000.wav")
+
+
+def _adapter_file(path, cfg, scale):
+    """A rank-4 adapter on every target with B drawn non-zero, saved."""
+    from freeze_omni_tpu_torch.models import lora
+
+    g = torch.Generator().manual_seed(3)
+    tree = lora.init(cfg.audio_llm.llm, g, rank=4, targets=lora.TARGETS,
+                     device="cpu")
+    for pair in tree.values():
+        pair["b"] = 0.05 * torch.randn(pair["b"].shape, generator=g)
+    lora.save(path, tree, scale=scale)
+    return lora.load(path)[0]
+
+
+@pytest.mark.parametrize("mode", ["tiny-engine", "flagship-int4", "per-session"])
+def test_lora_flag_merges_at_boot(mode, tmp_path, monkeypatch):
+    """--lora merges the adapter into the tree the server serves: its LLM
+    leaves equal lora.merge of the same seeded weights at --lora_scale
+    (which overrides the file's scale). The tiny preset merges into its f32
+    draw; flagship (tiny widths here) into its int4 draw."""
+    from freeze_omni_tpu_torch.models import audio_llm, lora
+
+    cfg = tiny_system()
+    path = str(tmp_path / "adapter.npz")
+    adapter = _adapter_file(path, cfg, scale=0.5)
+    argv = ["--device", "cpu", "--lora", path, "--lora_scale", "0.25"]
+    if mode == "flagship-int4":
+        monkeypatch.setattr(serve, "flagship_system", tiny_system)
+        argv += ["--preset", "flagship", "--engine", "--quant", "4",
+                 "--max_sessions", "2"]
+        base = audio_llm.init_params(cfg.audio_llm, seed=0, device="cpu",
+                                     llm_dtype=torch.bfloat16, quantize_llm=True,
+                                     quant_bits=4)["llm"]
+    else:
+        argv += ["--preset", "tiny"] + (["--engine"] if mode == "tiny-engine" else [])
+        base = audio_llm.init_params(cfg.audio_llm, seed=0, device="cpu",
+                                     llm_dtype=torch.float32)["llm"]
+    server = serve.Server(serve.get_args(argv))
+    try:
+        core = (server.service.engine if server.service else server.pipeline).core
+        got = weights.to_numpy(core.params["llm"])
+        want = weights.to_numpy(lora.merge(base, adapter, 0.25))
+        for (path_, g), w in zip(jax.tree_util.tree_leaves_with_path(got),
+                                 jax.tree.leaves(want)):
+            np.testing.assert_array_equal(g, w, err_msg=str(path_))
+        key = "w_q4" if mode == "flagship-int4" else "w"
+        assert not np.array_equal(got["layers"]["q"][key],
+                                  weights.to_numpy(base["layers"]["q"][key]))
+    finally:
+        server.stop_ticker()
+
+
+@pytest.mark.parametrize("engine", [True, False])
+def test_voice_wav_sets_the_global_tokens_jax_derives(engine, monkeypatch):
+    """--voice_wav draws the codec with its encoder branch and puts the
+    voice's global style tokens in cfg.tts.codec: the tokens JAX's
+    extract_global_tokens gives on the same codec weights and wav, and the
+    ones the synthesizer (the service's pool, or the responder's
+    StreamingTTS) speaks with."""
+    from freeze_omni_tpu import config as jcfg
+    from freeze_omni_tpu import tts as jtts
+    from freeze_omni_tpu.frontend import native as jnative
+    from freeze_omni_tpu.frontend.wav import read_wav as jread_wav
+
+    monkeypatch.setattr(jnative, "available", lambda: False)   # numpy resampler
+    server = serve.Server(serve.get_args(
+        ["--preset", "tiny", "--device", "cpu", "--respond", "--voice_wav", VOICE]
+        + (["--engine"] if engine else [])))
+    try:
+        tts = server.service._tts if engine else server.responder.tts
+        codec = (server.service.tts_params if engine else tts.params)["codec"]
+        assert "encoder" in codec
+        wav, sr = jread_wav(VOICE)
+        want = jtts.extract_global_tokens(weights.to_numpy(codec),
+                                          jcfg.tiny_system().tts.codec, wav, sr)
+        assert server.cfg.tts.codec.global_tokens == want
+        assert tts._global_tokens.reshape(-1).tolist() == list(want)
+    finally:
+        server.stop_ticker()
+
+
+def _open_and_tick(server, sids, seed=0):
+    """Open `sids` on the server's service (its ticker stopped) and run one
+    user tick each through its engine; their KV lengths."""
+    eng = server.service.engine
+    rng = np.random.RandomState(seed)
+    for sid in sids:
+        server.service.open_session(sid)
+        eng.submit_chunk(sid, "user", rng.randn(1, 32, 80).astype(np.float32),
+                         is_sl=True)
+    eng.tick()
+    return {sid: eng.store.kv_length(eng.store.slot_of(sid)) for sid in sids}
+
+
+def test_state_dir_snapshot_and_reboot_resume(tmp_path):
+    """A --state_dir server snapshots its live sessions at shutdown; the next
+    boot with the same flags restores them in run(), and a client that
+    reconnects with its sid resumes with the row's KV length."""
+    websockets = pytest.importorskip("websockets")
+    port = _free_port()
+    argv = ["--preset", "tiny", "--engine", "--device", "cpu", "--port",
+            str(port), "--state_dir", str(tmp_path / "state")]
+    first = serve.Server(serve.get_args(argv))
+    first.stop_ticker()
+    lengths = _open_and_tick(first, ["c1", "c2"])
+    assert sorted(first.snapshot()) == ["c1", "c2"]
+    prefix = int(first.service.engine.store.prefix_len[
+        first.service.engine.store.slot_of("c1")])
+    assert lengths["c1"] > prefix
+
+    second = serve.Server(serve.get_args(argv))
+    store = second.service.engine.store
+
+    async def client():
+        deadline = time.time() + 30
+        while True:
+            try:
+                ws = await websockets.connect(f"ws://127.0.0.1:{port}",
+                                              open_timeout=10)
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                await asyncio.sleep(0.1)
+        async with ws:
+            assert sorted(store.active_sids) == ["c1", "c2"]   # restored
+            await ws.send(json.dumps({"type": "start_session", "sid": "c1"}))
+            while json.loads(await asyncio.wait_for(ws.recv(), 30))["event"] \
+                    != "session_ready":
+                pass
+            got = store.kv_length(store.slot_of("c1"))
+            await ws.send(json.dumps({"type": "stop"}))
+        return got
+
+    async def main():
+        task = asyncio.create_task(second.run())
+        try:
+            return await client()
+        finally:
+            task.cancel()
+            with pytest.raises(asyncio.CancelledError):
+                await task
+
+    assert asyncio.run(main()) == lengths["c1"]
+    # the reboot's own shutdown snapshotted what was still live: c2
+    index = json.loads((tmp_path / "state" / "sessions.json").read_text())
+    assert list(index["sessions"]) == ["c2"]
+
+
+def test_resume_grace_evicts_an_unclaimed_restored_session(tmp_path):
+    argv = ["--preset", "tiny", "--engine", "--device", "cpu", "--state_dir",
+            str(tmp_path / "state"), "--resume_grace", "0.3"]
+    first = serve.Server(serve.get_args(argv))
+    first.stop_ticker()
+    _open_and_tick(first, ["kept", "gone"])
+    first.snapshot()
+    second = serve.Server(serve.get_args(argv))
+    try:
+        assert sorted(second.restore_snapshot()) == ["gone", "kept"]
+        second.service.open_session("kept")   # its client reconnected
+        assert asyncio.run(second.evict_unclaimed(["gone", "kept"])) == ["gone"]
+        store = second.service.engine.store
+        assert store.has("kept") and not store.has("gone")
+    finally:
+        second.stop_ticker()
+
+
+def test_a_reattach_at_the_resume_deadline_keeps_a_live_row(tmp_path):
+    """A client that reconnects just as --resume_grace runs out ends with a
+    live row, whichever of the two comes first: the eviction runs on the
+    serving loop, on the thread where the handler opens sessions, so it
+    cannot free a row between a reattach's open and its check."""
+    websockets = pytest.importorskip("websockets")
+    port, grace = _free_port(), 0.6
+    argv = ["--preset", "tiny", "--engine", "--device", "cpu", "--port",
+            str(port), "--state_dir", str(tmp_path / "state"),
+            "--resume_grace", str(grace)]
+    first = serve.Server(serve.get_args(argv))
+    first.stop_ticker()
+    _open_and_tick(first, ["late", "gone"])
+    first.snapshot()
+    second = serve.Server(serve.get_args(argv))
+    eng, svc = second.service.engine, second.service
+    threads = {}
+
+    def recorded(name, fn):
+        def call(*a, **kw):
+            threads.setdefault(name, set()).add(threading.get_ident())
+            return fn(*a, **kw)
+        return call
+
+    eng.close_session = recorded("close", eng.close_session)
+    svc.open_session = recorded("open", svc.open_session)
+
+    async def client(deadline):
+        while True:
+            try:
+                ws = await websockets.connect(f"ws://127.0.0.1:{port}",
+                                              open_timeout=10)
+                break
+            except OSError:
+                await asyncio.sleep(0.05)
+        async with ws:
+            await asyncio.sleep(max(0.0, deadline - time.monotonic()))
+            await ws.send(json.dumps({"type": "start_session", "sid": "late"}))
+            while json.loads(await asyncio.wait_for(ws.recv(), 30))["event"] \
+                    != "session_ready":
+                pass
+            await asyncio.sleep(grace)   # past the eviction, whenever it ran
+            live = (eng.store.has("late"), "late" in svc.sessions,
+                    eng.store.has("gone"))
+            await ws.send(json.dumps({"type": "stop"}))
+        return live
+
+    async def main():
+        deadline = time.monotonic() + grace
+        task = asyncio.create_task(second.run())
+        try:
+            return await client(deadline), threading.get_ident()
+        finally:
+            task.cancel()
+            with pytest.raises(asyncio.CancelledError):
+                await task
+
+    live, loop_thread = asyncio.run(main())
+    assert live == (True, True, False)
+    # "gone" was evicted and the reattach opened: both on the loop's thread
+    assert threads["close"] == threads["open"] == {loop_thread}
+
+
+def test_snapshot_delivers_the_pipelined_tick_in_flight(tmp_path):
+    """--pipeline_ticks: Server.snapshot delivers the tick still in flight
+    before it exports. On the committed tiny system with an int8 KV store,
+    the pipelined server's predictions and saved rows equal those of the
+    same run made synchronously, and so does one more tick after each
+    server restores its own snapshot."""
+    from tests.test_torch_service import SIDS, _audio, _predictions
+
+    runs = {}
+    for pipelined in (True, False):
+        state = tmp_path / f"state-{pipelined}"
+        server = serve.Server(serve.get_args(
+            ["--preset", "tiny", "--model_path", COPY, "--engine", "--device",
+             "cpu", "--kv_quant", "8", "--state_dir", str(state),
+             *(["--pipeline_ticks"] if pipelined else [])]))
+        server.stop_ticker()
+        svc, eng = server.service, server.service.engine
+        audio = _audio(server.cfg.duplex.gating.samples_per_chunk)
+        sinks = {sid: svc.open_session(sid) for sid in SIDS}
+        for k in range(3):
+            for sid in SIDS:
+                for ident in ("user", "system"):
+                    svc.enqueue_audio_data(sid, ident,
+                                           {"audio": audio[sid][ident][k]})
+            svc.step()
+        if pipelined:
+            # step on until a user chunk's tick is in flight, with earlier
+            # predictions already delivered
+            n_steps = 3
+            while not (svc._pending_tick[1] and
+                       any(_predictions(s) for s in sinks.values())):
+                svc.step()
+                n_steps += 1
+                assert n_steps < 20
+        else:
+            for _ in range(n_steps - 3):
+                svc.step()
+        assert sorted(server.snapshot()) == sorted(SIDS)
+        index = json.loads((state / "sessions.json").read_text())["sessions"]
+        rows = {}
+        for sid in SIDS:
+            with np.load(state / index[sid]["file"]) as z:
+                rows[sid] = [z[f"leaf_{j}"] for j in range(len(z.files))]
+        preds = {sid: _predictions(sinks[sid]) for sid in SIDS}
+        for sid in SIDS:
+            svc.close_session(sid)
+        assert sorted(server.restore_snapshot()) == sorted(SIDS)
+        rng = np.random.RandomState(5)
+        for sid in SIDS:
+            eng.submit_chunk(sid, "user", rng.randn(1, 32, 80).astype(np.float32),
+                             is_sl=False)
+        res = eng.tick()["user"]
+        after = {sid: res[eng.store.slot_of(sid)]["state_1"] for sid in SIDS}
+        runs[pipelined] = (preds, rows, after)
+    (pp, prow, pafter), (sp, srow, safter) = runs[True], runs[False]
+    assert pp == sp and all(pp.values()), (pp, sp)
+    for sid in SIDS:
+        assert len(prow[sid]) == len(srow[sid])
+        n = len(prow[sid])
+        for j, (a, b) in enumerate(zip(prow[sid], srow[sid])):
+            if j in (n - 3, n - 2):   # kv.k, kv.v [L, 1, S, Hkv, dk]: the
+                # scratch slot S-1 takes the masked tokens' writes in any order
+                a, b = a[:, :, :-1], b[:, :, :-1]
+            np.testing.assert_array_equal(a, b)
+    assert pafter == safter
+
+
+def test_client_against_a_responding_server(tmp_path):
+    """The port's bin/client drives the port's tiny server (--engine
+    --respond --resp_threshold 0) end to end, as the JAX package's test does
+    its own: dialog events, the spoken response and the reply wav."""
+    pytest.importorskip("websockets")
+    from freeze_omni_tpu_torch.bin.client import main as client_main
+    from freeze_omni_tpu_torch.frontend.wav import read_wav, write_wav
+
+    port = _free_port()
+    server = serve.Server(serve.get_args(
+        ["--preset", "tiny", "--device", "cpu", "--port", str(port), "--engine",
+         "--respond", "--resp_threshold", "0.0"]))
+    loop = asyncio.new_event_loop()
+    task = loop.create_task(server.run())
+    thread = threading.Thread(target=lambda: loop.run_until_complete(
+        asyncio.gather(task, return_exceptions=True)), daemon=True)
+    thread.start()
+    try:
+        n = server.cfg.duplex.gating.samples_per_chunk
+        wav = np.concatenate([np.zeros(2 * n, np.float32),
+                              0.5 * synth_speech(np.random.RandomState(7), 4 * n),
+                              np.zeros(3 * n, np.float32)])
+        inp, out = tmp_path / "in.wav", tmp_path / "out.wav"
+        write_wav(str(inp), wav, 16000)
+        stats = client_main(["--url", f"ws://127.0.0.1:{port}", "--input_wav",
+                             str(inp), "--output_wav", str(out), "--speed", "8",
+                             "--listen_s", "6"])
+    finally:
+        loop.call_soon_threadsafe(task.cancel)
+        thread.join(30)
+    assert stats["events"].get("dialog_state_update", 0) >= 1
+    assert stats["events"].get("vad_event", 0) >= 1
+    assert stats["texts"], f"no response_text; events={stats['events']}"
+    assert stats["responses"], f"no response_audio; events={stats['events']}"
+    reply, sr = read_wav(str(out))
+    assert reply.size > 0 and sr in (16000, 24000)
