@@ -6,8 +6,9 @@
 Runs the port's serving paths on the card with no fallback anywhere: the
 duplex dialog-state tick and the batched spoken response (text decode ->
 speech decoder -> codec -> PCM) in int8, and the int4 configuration served
-through bin/serve.py's Server and the DuplexService. Any failing phase
-raises and the script exits nonzero without printing a result. Phases:
+through bin/serve.py's Server and the DuplexService; then the native host
+frontend and the training path. Any failing phase raises and the script
+exits nonzero without printing a result. Phases:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: every kernel of both paths from freeze_omni_tpu_torch/csrc with
@@ -222,7 +223,36 @@ raises and the script exits nonzero without printing a result. Phases:
    (the port's copy) at --top_k 1 on sentences.txt, on the card and on the
    CPU, TF32 off: both out-CERs beside QUALITY.json's, every differing
    hypothesis printed (the ASR pass samples at the config's top-k with each
-   device's generator), K4 launched.
+   device's generator), K4 launched;
+13. the native host frontend (frontend/native.py over native/frontend/
+   {fbank,resample,vad}.cc, built with g++ on this host; phase 9 already
+   asserts its service frontends took it): the native fbank at 25/10 and
+   16/8 ms against fbank_ref, the offline and gating chunkers against their
+   torch paths (rtol 1e-4, atol 1e-3), the one-shot and streaming
+   resamplers against the numpy path (1e-6), the learned VAD against its
+   numpy GRU (2e-3, statuses equal); then phase 9's frontend work (8
+   sessions x 2 identities, VAD + gating a 224 ms chunk) timed with the
+   native core and with the numpy/torch paths in turns (numpy, native,
+   native, numpy), beside phase 9's service-step host frontend; prints its
+   wall time;
+14. training, launch counts zeroed before and read after (no kernel may
+   launch: the frozen LLM is f32): (a) one stage_step of state, align, lora
+   and all at Qwen2-7B width with 2 LLM layers, TF32 off, card against CPU
+   from the same weights and data.py batch: loss within 1e-4 relative,
+   every gradient within 1e-3 of its leaf's largest entry, parameters after
+   the step within 1e-5 where the gradient is resolved (above 1e-3 of the
+   tree's largest) and within 2 lr elsewhere (the first Adam step moves an
+   entry by about lr * sign(g)); (b) bin/train.main --preset flagship
+   --stage state --steps 6 --batch 2 --save_every 3 (full width and
+   depth, the f32 LLM), then 3 steps and --resume for 3 more: the resumed
+   losses within 1e-5 relative of the uninterrupted ones; s/step, the peak
+   memory and the losses printed; (c) --stage lora (rank 8, q,v) for 3
+   steps, its lora.npz merged by serve's _merge_lora into an int4 Qwen2-7B
+   tree as the --quant 4 server draws it: layer 0's weight change regressed
+   on the adapter's delta must have slope 0.7-1.3; (d) three gan_steps at
+   the flagship codec (autoencode with the VQ losses, 2 x 0.5 s of speech
+   surrogate) and a dead-code reseed, then training/vad.train for 3 steps
+   of 8 mixtures: finite losses. Prints its wall time.
 
 The last lines: the nvidia-smi line, one {"kernels": [...]} JSON line and
 the device JSON line.
@@ -1347,6 +1377,10 @@ def phase_service(smi, int8_llm_bytes):
     sids = [f"u{i}" for i in range(cfg.serving.max_sessions)]
     sinks = {sid: svc.open_session(sid) for sid in sids}
     for fe in svc.sessions.values():
+        # the host frontend runs the native core (phase 13 holds and times it)
+        if fe.vad["user"]._native is None or any(
+                g._native is None for g in fe.gating.values()):
+            raise AssertionError("the service frontend did not take the native core")
         for v in fe.vad.values():
             v.predict = timed(v.predict, "vad")
     n = cfg.duplex.gating.samples_per_chunk
@@ -1492,7 +1526,8 @@ def phase_service(smi, int8_llm_bytes):
     log(f"[serve] the pool's rows ({pool.state.cache.kv.k.shape[2]} slots) after "
         f"its deepest step: {deepest}")
     return {"server": server, "launches": launches, "per_tick": per_tick,
-            "per_response": per_resp, "pool": pool, "pool_lengths": deepest}
+            "per_response": per_resp, "pool": pool, "pool_lengths": deepest,
+            "front_ms": col(ticks, "front", 5)}
 
 
 def dense_bf16_ms(x, w):
@@ -3372,6 +3407,511 @@ def phase_out_cer(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the native host frontend
+# ---------------------------------------------------------------------------
+
+NATIVE_FBANK_TOL = dict(rtol=1e-4, atol=1e-3)   # tests/test_native.py's
+NATIVE_RESAMPLE_ATOL = 1e-6
+NATIVE_VAD_TOL = 2e-3
+FRONT_STEPS = 100            # 224 ms steps of the frontend A/B
+
+
+def frontend_streams(n_sessions, n, steps):
+    """Per session and identity, `steps` chunks of n samples: the users
+    speak (user_streams), the system line is LINE_NOISE noise."""
+    import numpy as np
+
+    users = user_streams(n_sessions, n)
+    rng = np.random.RandomState(1)
+    out = []
+    for s in range(n_sessions):
+        u = np.concatenate([users[s], np.zeros(steps * n, np.float32)])[:steps * n]
+        sysline = (LINE_NOISE * rng.randn(steps * n)).astype(np.float32)
+        out += [u.reshape(steps, n), sysline.reshape(steps, n)]
+    return out
+
+
+def frontend_step_times(cfg, streams, native_on):
+    """ms per 224 ms step of every stream's VAD + fbank gating (the
+    duplex.engine.vad_stage work the native core replaces), with the native
+    core or with the numpy/torch paths."""
+    import dataclasses
+
+    import numpy as np
+
+    from freeze_omni_tpu_torch.duplex.vad import make_vad
+    from freeze_omni_tpu_torch.frontend.chunker import GatingChunker
+
+    gcfg = cfg.duplex.gating
+    vad_cfg = dataclasses.replace(cfg.duplex.vad, chunk_size=gcfg.samples_per_chunk)
+    vads = [make_vad(vad_cfg, identity=("user", "system")[j % 2])
+            for j in range(len(streams))]
+    gates = [GatingChunker(gcfg) for _ in streams]
+    if not native_on:
+        for obj in vads + gates:
+            obj._native = None
+    if (vads[0]._native is not None) != native_on or \
+            (gates[0]._native is not None) != native_on:
+        raise AssertionError(f"frontend path is not the {native_on=} one")
+    times, statuses = [], []
+    for k in range(streams[0].shape[0]):
+        t = time.perf_counter()
+        for v, g, s in zip(vads, gates, streams):
+            ann = v.predict({"audio": s[k], "time_stamp": 0.0})
+            g.process_and_gate({"audio": ann["audio"], "status": ann["status"]})
+            statuses.append(ann["status"])
+        times.append((time.perf_counter() - t) * 1e3)
+    return np.array(times), statuses
+
+
+def phase_native_frontend(smi, service_front):
+    """13: the native host frontend (frontend/native.py over native/frontend/
+    *.cc, built with g++ on this host): the port's chunkers, resamplers and
+    learned VAD must take it, held to their numpy/torch paths; then the
+    frontend work of phase 9's step (8 sessions, both identities: VAD +
+    fbank gating a 224 ms chunk) timed with the native core and with the
+    numpy/torch paths, in turns (numpy, native, native, numpy)."""
+    import numpy as np
+
+    from freeze_omni_tpu_torch.config import FbankConfig, flagship_system
+    from freeze_omni_tpu_torch.duplex.vad import LearnedVAD
+    from freeze_omni_tpu_torch.frontend import native, wav
+    from freeze_omni_tpu_torch.frontend.chunker import GatingChunker, OfflineChunker
+    from freeze_omni_tpu_torch.frontend.fbank import fbank_ref
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native frontend did not build on this host")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True)
+    log(f"[native] {gxx.stdout.splitlines()[0]}; library "
+        f"{native.library_path().name} ({time.perf_counter() - t0:.2f} s to build "
+        f"and load)")
+    cfg = flagship_system()
+    gcfg = cfg.duplex.gating
+    n = gcfg.samples_per_chunk
+    rng = np.random.RandomState(7)
+    errs = {}
+
+    def held(name, got, ref, **tol):
+        np.testing.assert_allclose(got, ref, **tol, err_msg=name)
+        errs[name] = float(np.abs(np.asarray(got) - np.asarray(ref)).max(initial=0.0))
+
+    x = (rng.randn(4000) * 1500).astype(np.float32)
+    held("fbank 25/10", native.NativeFbank()(x), fbank_ref(x, FbankConfig()),
+         **NATIVE_FBANK_TOL)
+    held("fbank 16/8", native.NativeFbank(frame_ms=16, shift_ms=8)(x),
+         fbank_ref(x, gcfg.fbank()), **NATIVE_FBANK_TOL)
+    for name, cls, size, fn in (("offline chunker", OfflineChunker, 2560, "process"),
+                                ("gating chunker", GatingChunker, n, "extract")):
+        nat, py = cls(), cls()
+        if nat._native is None:
+            raise AssertionError(f"{name} did not take the native core")
+        py._native = None
+        for _ in range(6):
+            a = (rng.randn(size) * 0.05).astype(np.float32)
+            held(name, getattr(nat, fn)(a), getattr(py, fn)(a), **NATIVE_FBANK_TOL)
+    speech = 0.5 * speech_surrogate(np.random.RandomState(3), 48000, sr=48000)
+    held("resample 48k->16k", wav.resample(speech, 48000, 16000),
+         wav.resample_numpy(speech, 48000, 16000), rtol=0, atol=NATIVE_RESAMPLE_ATOL)
+    rs = wav.StreamingResampler(48000, 16000)
+    if rs._native is None:
+        raise AssertionError("StreamingResampler did not take the native core")
+    parts = [rs.push(speech[i:i + 1920]) for i in range(0, len(speech), 1920)]
+    held("streaming resample", np.concatenate(parts + [rs.flush()]),
+         wav.resample_numpy(speech, 48000, 16000), rtol=0, atol=NATIVE_RESAMPLE_ATOL)
+    nat, py = LearnedVAD(), LearnedVAD()
+    if nat._native is None:
+        raise AssertionError("LearnedVAD did not take the native core")
+    py._native = None
+    stream = frontend_streams(1, 512, 240)[0]
+    a = [nat.predict({"audio": c, "time_stamp": 0.0}) for c in stream]
+    b = [py.predict({"audio": c, "time_stamp": 0.0}) for c in stream]
+    held("learned VAD prob", [r["prob"] for r in a], [r["prob"] for r in b],
+         rtol=0, atol=NATIVE_VAD_TOL)
+    if [r["status"] for r in a] != [r["status"] for r in b]:
+        raise AssertionError("native and numpy VAD statuses differ")
+    log(f"[native] held to the numpy/torch paths, max |diff|: "
+        f"{ {k: round(v, 8) for k, v in errs.items()} }")
+
+    streams = frontend_streams(8, n, FRONT_STEPS)
+    runs = {}
+    for native_on in (False, True, True, False):
+        t, st = frontend_step_times(cfg, streams, native_on)
+        runs.setdefault(native_on, []).append(t)
+        if not any(s == "ipu_sl" for s in st):
+            raise AssertionError("no user IPU opened in the frontend A/B")
+    for native_on, label in ((False, "numpy/torch"), (True, "native")):
+        for i, t in enumerate(runs[native_on]):
+            log(f"[native] ({smi}) frontend step, 8 sessions x 2 identities "
+                f"(VAD + gating), {label} run {i + 1}: {pct(t)}")
+    p50 = {k: [float(np.percentile(t, 50)) for t in v] for k, v in runs.items()}
+    log(f"[native] ({smi}) phase 9's service-step host frontend (VAD + gating + "
+        f"serializer) with the native core: {pct(service_front)}; the same "
+        f"work's numpy/torch path is timed above (p50 {p50[False]} ms against "
+        f"native {p50[True]} ms)")
+    log(f"[phase 13] {time.perf_counter() - t0:.1f} s wall")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: training
+# ---------------------------------------------------------------------------
+
+TRAIN_PARITY_STAGES = ("state", "align", "lora", "all")
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_FRAC = 1e-3
+TRAIN_PARAM_ATOL = 1e-5
+TRAIN_LR = 1e-3
+RESUME_RTOL = 1e-5
+
+
+def worst_grad_err(grads, ref):
+    """Worst |grad - ref| over a leaf's largest |ref|, over the leaves whose
+    largest entry is above 1e-8 of the tree's (the rest is rounding noise of
+    an exactly-zero gradient)."""
+    floor = 1e-8 * max(float(r.abs().max()) for r in ref if r.numel())
+    return max(float((g.detach().cpu() - r).abs().max()) / float(r.abs().max())
+               for g, r in zip(grads, ref) if r.numel() and float(r.abs().max()) > floor)
+
+
+def params_after_step_agree(card, cpu, grads_cpu):
+    """Max |diff| over entries whose CPU gradient is resolved (above 1e-3 of
+    the tree's largest gradient) and over all entries: the first Adam step
+    moves an entry by about lr * sign(g), so a gradient that is rounding
+    noise moves it by up to lr either way on either device."""
+    from freeze_omni_tpu_torch.training import optim
+
+    g_all = [g.abs() for g in optim.leaves(grads_cpu)]
+    resolved = 1e-3 * max(float(g.max()) for g in g_all if g.numel())
+    worst_resolved = worst = 0.0
+    for a, b, g in zip(optim.leaves(card), optim.leaves(cpu), g_all):
+        err = (a.detach().cpu() - b.detach()).abs()
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        sel = err[g > resolved]
+        if sel.numel():
+            worst_resolved = max(worst_resolved, float(sel.max()))
+    return worst_resolved, worst
+
+
+def phase_train_parity(smi):
+    """14a: one stage_step of state, align, lora and all at Qwen2-7B width
+    with 2 LLM layers, TF32 off, on the card and on the CPU from the same
+    weights (drawn once on the CPU and copied) and the same data.py batch."""
+    import torch
+
+    from freeze_omni_tpu_torch.bin.train import stage_trees
+    from freeze_omni_tpu_torch.models import audio_llm
+    from freeze_omni_tpu_torch.models import lora as lora_mod
+    from freeze_omni_tpu_torch.models import speech_decoder as sd
+    from freeze_omni_tpu_torch.training import data as data_mod
+    from freeze_omni_tpu_torch.training import optim
+    from freeze_omni_tpu_torch.training import train_step as ts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = parity_config()
+    acfg, dcfg = cfg.audio_llm, cfg.tts.decoder
+    t = time.perf_counter()
+    params = audio_llm.init_params(acfg, seed=5, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    dec = sd.init_params(dcfg, gen, device="cpu")
+    lo = lora_mod.init(acfg.llm, gen, rank=8, device="cpu")
+    for pair in lo.values():   # B drawn non-zero, so A's gradient is not 0
+        pair["b"].normal_(0.0, 0.02, generator=gen)
+    llm_card = tree_to(params["llm"], "cuda")
+    log(f"[train] 2-layer Qwen2-7B-width trees drawn and copied in "
+        f"{time.perf_counter() - t:.1f} s")
+    for stage in TRAIN_PARITY_STAGES:
+        trainable, frozen = stage_trees(
+            stage, params, {"lora": lo}.get(stage, dec))
+        batch = next(data_mod.stage_batches(stage, acfg, dcfg, 2, 1, seed=11))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            fr = {"llm": llm_card} if dev == "cuda" else frozen
+            state = ts.init_train_state(tree_to(trainable, dev), lr=TRAIN_LR)
+            t = time.perf_counter()
+            state, m = ts.stage_step(stage, state, fr, acfg, dcfg,
+                                     ts.to_tensors(batch, dev))
+            loss = float(m["loss"])
+            out[dev] = (loss, state, time.perf_counter() - t)
+        (lc, sc, tc), (lh, sh, th) = out["cuda"], out["cpu"]
+        rel = abs(lc - lh) / abs(lh)
+        g_cpu = optim.leaves(optim.map_tree(lambda p: p.grad, sh.trainable))
+        # a leaf whose gradient is exactly 0 in exact arithmetic (the
+        # encoder's key bias, under a softmax that ignores it) holds rounding
+        # noise (~1e-11) on both devices: the floor is 1e-8 of the tree's
+        # largest gradient, under 1e-3 of any other leaf's largest entry
+        floor = 1e-8 * max(float(g.abs().max()) for g in g_cpu if g.numel())
+        g_err, zero_leaves = 0.0, 0
+        for gc_, gh in zip(optim.leaves(optim.map_tree(lambda p: p.grad, sc.trainable)),
+                           g_cpu):
+            scale = float(gh.abs().max()) if gh.numel() else 0.0
+            e = float((gc_.cpu() - gh).abs().max()) if gh.numel() else 0.0
+            if e > TRAIN_GRAD_FRAC * scale + floor:
+                raise AssertionError(f"{stage}: a gradient differs card vs CPU by "
+                                     f"{e} (largest entry {scale})")
+            if scale > floor:
+                g_err = max(g_err, e / scale)
+            else:
+                zero_leaves += 1
+        worst_res, worst = params_after_step_agree(
+            sc.trainable, sh.trainable, optim.map_tree(lambda p: p.grad, sh.trainable))
+        log(f"[train] ({smi}) {stage}: loss card {lc:.6f} CPU {lh:.6f} (rel "
+            f"{rel:.2e}); gradients within {g_err:.2e} of each leaf's largest "
+            f"({zero_leaves} leaves of rounding noise under the floor {floor:.1e}); "
+            f"params after the step within {worst_res:.2e} where the gradient "
+            f"is resolved, {worst:.2e} anywhere; step {tc:.3f} s card, {th:.3f} s CPU")
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{stage}: loss card {lc} vs CPU {lh}")
+        if not (worst_res <= TRAIN_PARAM_ATOL and worst <= 2 * TRAIN_LR):
+            raise AssertionError(f"{stage}: params after the step differ by "
+                                 f"{worst_res} (resolved) / {worst}")
+        if stage == "state":
+            # why stage_step turns cuDNN off: the same gradients with it on
+            tr = optim.trainable(tree_to(trainable, "cuda"))
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                loss = ts.stage_loss(stage, tr, {"llm": llm_card}, acfg, dcfg,
+                                     ts.to_tensors(batch, "cuda"))
+                g = torch.autograd.grad(loss, optim.leaves(tr), allow_unused=True)
+            g = [torch.zeros_like(p) if x is None else x
+                 for p, x in zip(optim.leaves(tr), g)]
+            ref = optim.leaves(optim.map_tree(lambda p: p.grad, sh.trainable))
+            log(f"[train] ({smi}) state with cuDNN on (TF32 off): gradients within "
+                f"{worst_grad_err(g, ref):.2e} of each leaf's largest (stage_step, "
+                f"cuDNN off: {g_err:.2e})")
+            del tr, g
+        del out, sc, sh
+    del params, llm_card
+    torch.backends.cudnn.allow_tf32 = True   # serving default
+
+
+def train_run(argv):
+    """bin/train.main on the card; returns its output with the peak device
+    memory."""
+    import torch
+
+    from freeze_omni_tpu_torch.bin import train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def phase_train_flagship(smi):
+    """14b/c: bin/train.py at full width and depth on the card: --stage state
+    for 6 steps (checkpoint every 3), then 3 steps and --resume for 3 more,
+    the resumed losses equal to the uninterrupted ones; then a short --stage
+    lora run whose lora.npz serve --lora (`bin/serve._merge_lora`) merges
+    into an int4 Qwen2-7B tree as the --quant 4 server draws it."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch.bin.serve import _merge_lora
+    from freeze_omni_tpu_torch.config import flagship_system
+    from freeze_omni_tpu_torch.models import lora as lora_mod
+    from freeze_omni_tpu_torch.ops.quant import (dequantize_weight_int4,
+                                                 init_quantized_llm)
+
+    base = ["--preset", "flagship", "--stage", "state", "--batch", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        full = train_run(base + ["--steps", "6", "--save_every", "3",
+                                 "--ckpt_dir", os.path.join(tmp, "a")])
+        t_full = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        ck = os.path.join(tmp, "b")
+        first = train_run(base + ["--steps", "3", "--save_every", "3",
+                                  "--ckpt_dir", ck])
+        gc.collect()
+        torch.cuda.empty_cache()
+        rest = train_run(base + ["--steps", "3", "--save_every", "3",
+                                 "--ckpt_dir", ck, "--resume"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        rel = np.abs(np.array(rest["losses"]) - np.array(full["losses"][3:])) \
+            / np.abs(np.array(full["losses"][3:]))
+        s_step = np.array(full["step_seconds"][1:])
+        log(f"[train] ({smi}) bin/train.py --preset flagship --stage state "
+            f"--steps 6 --batch 2: {t_full:.1f} s in all (the f32 LLM drawn on "
+            f"the card included); s/step {np.median(s_step):.4f} median, "
+            f"{s_step.min():.4f}-{s_step.max():.4f} (steps 2-6), first step "
+            f"{full['step_seconds'][0]:.3f} s; peak {full['peak_gib']:.2f} GiB; "
+            f"loss {full['losses'][0]:.6f} -> {full['losses'][-1]:.6f}")
+        log(f"[train] ({smi}) resume: steps 1-3 {first['losses']}, resumed "
+            f"steps 4-6 {rest['losses']} against the uninterrupted "
+            f"{full['losses'][3:]}: max rel {rel.max():.2e}; peak "
+            f"{rest['peak_gib']:.2f} GiB")
+        if rest["final_step"] != 6 or not rel.max() <= RESUME_RTOL:
+            raise AssertionError("the resumed run does not continue the "
+                                 "uninterrupted one")
+        if not np.isfinite(full["losses"]).all():
+            raise AssertionError("non-finite training loss")
+
+        lo_dir = os.path.join(tmp, "lora")
+        lo_run = train_run(["--preset", "flagship", "--stage", "lora", "--batch",
+                            "2", "--steps", "3", "--lora_rank", "8",
+                            "--lora_targets", "q,v", "--lr", "1e-2",
+                            "--ckpt_dir", lo_dir])
+        gc.collect()
+        torch.cuda.empty_cache()
+        path = os.path.join(lo_dir, "lora.npz")
+        tree, _ = lora_mod.load(path)
+        if not all(np.abs(p["b"]).max() > 0 for p in tree.values()):
+            raise AssertionError("the trained adapter's B is still zero")
+        cfg = flagship_system().audio_llm.llm
+        t = time.perf_counter()
+        llm = init_quantized_llm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                 "cuda", bits=4)
+        layer0 = lambda p: dequantize_weight_int4(  # noqa: E731
+            {"w_q4": p["w_q4"][0], "scale4": p["scale4"][0]}, torch.float32)
+        before = {n: layer0(llm["layers"][n]) for n in tree}
+        llm, scale = _merge_lora(llm, path)
+        torch.cuda.synchronize()
+        # layer 0's change of weight regressed on the adapter's delta: int4
+        # rounding is unbiased against it, so the slope is ~1 where the
+        # merge added the delta (0 where it added nothing)
+        slope = {}
+        for n, pair in tree.items():
+            d = (torch.as_tensor(pair["a"][0]).cuda().float()
+                 @ torch.as_tensor(pair["b"][0]).cuda().float()) * scale
+            dw = layer0(llm["layers"][n]) - before[n]
+            slope[n] = float((dw * d).sum() / (d * d).sum())
+        log(f"[train] ({smi}) --stage lora (rank 8, q,v, lr 1e-2) 3 steps: loss "
+            f"{lo_run['losses']}, peak {lo_run['peak_gib']:.2f} GiB; serve --lora "
+            f"merged its lora.npz (scale {scale}) into the int4 tree "
+            f"({time.perf_counter() - t:.1f} s with the draw); layer 0's weight "
+            f"change against the delta, slope {slope}")
+        if not all(0.7 <= v <= 1.3 for v in slope.values()):
+            raise AssertionError("the merged int4 weights do not carry the adapter")
+        del llm, before
+
+
+def gan_grads(state, ccfg, wav, gst, dev, flags):
+    """The discriminator and generator gradients of gan_step's two losses
+    at `state` (one evaluation, no update) on `dev` under the cuDNN
+    `flags`, and the seconds."""
+    import torch
+
+    from freeze_omni_tpu_torch.training import codec_gan as gan
+    from freeze_omni_tpu_torch.training import optim
+
+    gp = optim.trainable(tree_to(state.gen_params, dev))
+    dp = optim.trainable(tree_to(state.disc_params, dev))
+    wav, gst = wav.to(dev), gst.to(dev)
+    t = time.perf_counter()
+    with torch.backends.cudnn.flags(**flags):
+        fake, aux = gan.autoencode(gp, ccfg, wav, gst)
+        n = min(fake.shape[-1], wav.shape[-1])
+        fake, wav = fake[..., :n], wav[..., :n]
+        d_loss = gan.discriminator_loss(gan.run_discriminators(dp, wav),
+                                        gan.run_discriminators(dp, fake.detach()))
+        dg = torch.autograd.grad(d_loss, optim.leaves(dp))
+        fo = gan.run_discriminators(dp, fake)
+        g_loss = (gan.generator_adv_loss(fo) + aux
+                  + gan.feature_matching_loss(gan.run_discriminators(dp, wav), fo)
+                  + 45.0 * gan.mel_l1_loss(wav, fake, ccfg.sample_rate))
+        gg = torch.autograd.grad(g_loss, optim.leaves(gp), allow_unused=True)
+    gg = [torch.zeros_like(p) if g is None else g for p, g in zip(optim.leaves(gp), gg)]
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return ([g.cpu() for g in dg], [g.cpu() for g in gg],
+            time.perf_counter() - t)
+
+
+def phase_train_codec_vad(smi):
+    """14d: gan_step at the flagship codec (encoder branch, autoencode with
+    the VQ losses, the 5 + 3 discriminators) and the learned VAD's training,
+    a few steps each on the card, with finite losses; the GAN's gradients
+    card (cuDNN on and off) against CPU beside them."""
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch.config import flagship_system
+    from freeze_omni_tpu_torch.models import codec
+    from freeze_omni_tpu_torch.training import codec_gan as gan
+    from freeze_omni_tpu_torch.training import vad as vad_train
+
+    ccfg = flagship_system().tts.codec
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    gen_params = codec.init_params(ccfg, gen, device="cuda", with_encoder=True)
+    disc = gan.init_discriminators(gen, device="cuda")
+    state = gan.init_gan_state(gen_params, disc, lr=2e-4)
+    del gen_params, disc
+    rng = np.random.RandomState(4)
+    n = 12000   # 0.5 s at 24 kHz: 20 codec frames
+    wav = torch.from_numpy(np.stack([0.5 * speech_surrogate(rng, n, sr=24000)
+                                     for _ in range(2)])[:, None]).cuda()
+    gst = torch.tensor([[list(ccfg.global_tokens)]], device="cuda")
+    gen_fn = lambda gp, w: gan.autoencode(gp, ccfg, w, gst)  # noqa: E731
+    # gan_step keeps cuDNN: its gradients with and without it, against the
+    # CPU's, and the time of each
+    ref = gan_grads(state, ccfg, wav, gst, "cpu", {})
+    for label, flags in (("cuDNN, TF32 on (torch's default)",
+                          dict(enabled=True, allow_tf32=True)),
+                         ("cuDNN, TF32 off", dict(enabled=True, allow_tf32=False)),
+                         ("no cuDNN", dict(enabled=False)),
+                         ("cuDNN, TF32 on, again", dict(enabled=True, allow_tf32=True))):
+        got = gan_grads(state, ccfg, wav, gst, "cuda", flags)
+        log(f"[train] ({smi}) codec GAN gradients, card ({label}) against the "
+            f"CPU: discriminators within {worst_grad_err(got[0], ref[0]):.2e} of "
+            f"each leaf's largest, generator {worst_grad_err(got[1], ref[1]):.2e}; "
+            f"{got[2]:.3f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, times = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        state, m = gan.gan_step(state, ccfg, wav, gen_fn)
+        rows.append({k: float(v) for k, v in m.items()})
+        times.append(time.perf_counter() - t)
+    with torch.no_grad():
+        feats, _ = codec.encode_features(state.gen_params, ccfg, wav)
+    _, n_dead = gan.reseed_dead_codes(state.gen_params, ccfg, feats,
+                                      np.random.RandomState(5))
+    log(f"[train] ({smi}) codec gan_step x3 (flagship codec, 2 x 0.5 s): "
+        f"s/step {[round(t, 3) for t in times]}; losses {rows}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; dead codes "
+        f"reseeded {n_dead} of {ccfg.n_codes}")
+    if not all(np.isfinite(list(r.values())).all() for r in rows):
+        raise AssertionError("non-finite codec GAN loss")
+    del state
+    t = time.perf_counter()
+    out = vad_train.train(steps=3, batch=8, seed=0, device="cuda")
+    log(f"[train] ({smi}) learned VAD train, 3 steps x 8 mixtures: "
+        f"{time.perf_counter() - t:.1f} s; losses {out['losses'].tolist()}")
+    if not np.isfinite(out["losses"]).all():
+        raise AssertionError("non-finite VAD loss")
+
+
+def phase_training(smi):
+    """14: training, (a) card vs CPU, (b)-(c) bin/train.py at full size,
+    (d) codec GAN and VAD; no kernel launches (the frozen LLM is f32)."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    zero_launches()
+    phase_train_parity(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_flagship(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_codec_vad(smi)
+    launches = read_launches()
+    log(f"[train] kernel launches in phase 14 {launches}")
+    if any(launches.values()):
+        raise AssertionError("training launched a serving kernel")
+    log(f"[phase 14] {time.perf_counter() - t0:.1f} s wall")
+
 
 
 def main() -> int:
@@ -3415,6 +3955,7 @@ def main() -> int:
         entry["launches"] += serve["launches"][key]
     phase_k4_service_times(serve, kernels, smi)
     kernels.insert(1, phase_k5_times(serve, errs, smi))
+    service_front = serve["front_ms"]
     del serve
     gc.collect()
     torch.cuda.empty_cache()
@@ -3455,6 +3996,12 @@ def main() -> int:
         n = snap["launches"][key] + out_cer[key]
         entry["launches_phase12"] = n
         entry["launches"] += n
+    del snap
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_launches()
+    phase_native_frontend(smi, service_front)
+    phase_training(smi)   # reads its own launch counts: none may launch
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -9,8 +9,10 @@ whose contract is visible at its call sites: `get_chunk_size()` (413),
 from a history ring, hangover-based end of IPU):
 
 - `LearnedVAD` (the default for the user): a frame-level log-mel GRU, run on
-  the host in numpy (the JAX module's `_prob_py` path; its native C++ core
-  is not ported). Its weights are the committed data file
+  the host by the native C++ core (native/frontend/vad.cc through
+  frontend/native.NativeVAD, one C call per chunk) where its library is
+  available, else in numpy (`_prob_py`, kept as its oracle). Its weights
+  are the committed data file
   freeze_omni_tpu/assets/vad.npz, read as data (the port imports nothing of
   the JAX package);
 - `EnergyVAD` (the default for the system identity): an adaptive noise-floor
@@ -26,6 +28,7 @@ from typing import Optional
 import numpy as np
 
 from ..config import VADConfig
+from ..frontend import native
 from ..frontend.fbank import VAD_FBANK, fbank_ref
 
 DEFAULT_VAD_WEIGHTS = str(Path(__file__).resolve().parents[2]
@@ -178,30 +181,47 @@ class EnergyVAD:
 
 
 class LearnedVAD(EnergyVAD):
-    """Frame-level log-mel GRU VAD, in numpy on the host.
+    """Frame-level log-mel GRU VAD on the host.
 
     Streaming: the GRU hidden state carries across chunks; each predict()
-    computes the chunk's 16 ms / 8 ms fbank frames (`fbank_ref`, samples
-    short of a frame carry over) and returns the mean frame speech
-    probability. Same IPU lifecycle as EnergyVAD."""
+    computes the chunk's 16 ms / 8 ms fbank frames (samples short of a
+    frame carry over) and returns the mean frame speech probability. The
+    native core computes it where its library is available (`_native`),
+    else `_prob_py` in numpy. Same IPU lifecycle as EnergyVAD."""
 
     def __init__(self, cfg: VADConfig = VADConfig(),
                  weights: Optional[str] = None):
         path = weights or DEFAULT_VAD_WEIGHTS
         with np.load(path) as z:
             self.params = {k: z[k].astype(np.float32) for k in z.files}
+        self._native = None
+        if native.available():
+            self._native = native.NativeVAD(
+                self.params, sample_rate=cfg.sample_rate,
+                frame_ms=VAD_FBANK.frame_length_ms,
+                shift_ms=VAD_FBANK.frame_shift_ms)
         super().__init__(cfg)
 
     def reset(self) -> None:
         super().reset()
         self.h = np.zeros(self.params["wz"].shape[1], np.float32)
         self._carry = np.zeros(0, np.float32)  # tail samples < one frame
+        if self._native is not None:
+            self._native.reset()
 
     @staticmethod
     def _sigmoid(x):
         return 1.0 / (1.0 + np.exp(-x))
 
     def _prob(self, audio: np.ndarray) -> float:
+        if self._native is not None:
+            p = self._native.push(audio)
+            return 0.0 if p is None else p
+        return self._prob_py(audio)
+
+    def _prob_py(self, audio: np.ndarray) -> float:
+        """The numpy twin of native/frontend/vad.cc (the fallback and the
+        native core's oracle)."""
         p = self.params
         wav = np.concatenate([self._carry, audio])
         fl, fs = VAD_FBANK.frame_length, VAD_FBANK.frame_shift

@@ -7,8 +7,10 @@
   steps + 4 context steps), with a history ring for IPU-onset replay
   (models/AudioFeatureGating.py).
 
-State lives in host numpy; the fbank runs through the port's torch fbank on
-the CPU. The JAX package's native C++ chunker is not ported.
+State lives in host numpy. The fbank and the waveform/feature ring run in
+the native C++ chunker (native/frontend/fbank.cc, frontend/native.py) when
+its library is available, one C call per chunk; otherwise through the
+port's torch fbank on the CPU.
 """
 
 from __future__ import annotations
@@ -19,7 +21,19 @@ import numpy as np
 import torch
 
 from ..config import ChunkerConfig, FbankConfig, GatingConfig
+from . import native
 from .fbank import fbank
+
+
+def _native_chunker(sample_rate, num_bins, frame_ms, shift_ms,
+                    steps_per_chunk, context_steps, scale):
+    """A NativeChunker where the native library is available, else None."""
+    if not native.available():
+        return None
+    return native.NativeChunker(int(sample_rate), int(num_bins),
+                                float(frame_ms), float(shift_ms),
+                                int(steps_per_chunk), int(context_steps),
+                                float(scale))
 
 
 class OfflineChunker:
@@ -29,6 +43,10 @@ class OfflineChunker:
         self.cfg = cfg
         self.fbank_cfg = FbankConfig(num_mel_bins=cfg.feat_dim)
         self.frame_overlap = cfg.frame_size - cfg.frame_shift
+        self._native = _native_chunker(
+            self.fbank_cfg.sample_rate, cfg.feat_dim,
+            self.fbank_cfg.frame_length_ms, self.fbank_cfg.frame_shift_ms,
+            cfg.chunk_size, cfg.chunk_overlap, 32768.0)
         self.reset()
 
     def get_chunk_size(self) -> int:
@@ -38,10 +56,14 @@ class OfflineChunker:
         c = self.cfg
         self.input_sample = np.zeros(c.samples_per_chunk + self.frame_overlap, np.float32)
         self.input_chunk = np.zeros((1, c.frames_per_step, c.feat_dim), np.float32)
+        if self._native is not None:
+            self._native.reset()
 
     def process(self, audio: np.ndarray) -> np.ndarray:
         """audio: [samples_per_chunk] float in [-1, 1]. Returns [1, 19, 80]."""
         c = self.cfg
+        if self._native is not None:
+            return self._native.process(audio)
         sample_data = np.asarray(audio, np.float32).reshape(-1) * 32768.0
         self.input_sample[: self.frame_overlap] = self.input_sample[-self.frame_overlap :]
         self.input_sample[self.frame_overlap :] = sample_data
@@ -63,6 +85,10 @@ class GatingChunker:
         self.cfg = cfg
         self.fbank_cfg = cfg.fbank()
         self.frame_overlap = self.fbank_cfg.frame_length - self.fbank_cfg.frame_shift
+        self._native = _native_chunker(
+            cfg.sample_rate, cfg.feat_dim, cfg.frame_length_s * 1000.0,
+            cfg.frame_shift_s * 1000.0, cfg.steps_per_chunk, cfg.context_steps,
+            32767.0)
         self.reset()
 
     def reset(self) -> None:
@@ -70,10 +96,14 @@ class GatingChunker:
         self.input_sample = np.zeros(c.samples_per_chunk + self.frame_overlap, np.float32)
         self.input_chunk = np.zeros((1, c.frames_per_step, c.feat_dim), np.float32)
         self.history = np.zeros((c.history_size, c.frames_per_step, c.feat_dim), np.float32)
+        if self._native is not None:
+            self._native.reset()
 
     def extract(self, audio: np.ndarray) -> np.ndarray:
         """audio: [samples_per_chunk] float in [-1, 1] -> [1, 32, 80]."""
         c = self.cfg
+        if self._native is not None:
+            return self._native.process(audio)
         sample_data = np.asarray(audio, np.float32).reshape(-1) * 32767.0
         self.input_sample[: self.frame_overlap] = self.input_sample[-self.frame_overlap :]
         self.input_sample[self.frame_overlap :] = sample_data

@@ -4,17 +4,22 @@ freeze_omni_tpu/frontend/wav.py).
 PCM16/PCM32/PCM8 through the standard library's `wave`; no soundfile or
 torchaudio is assumed. Resampling is a windowed-sinc polyphase filter (the
 design of torchaudio's sinc_interp_hann: lowpass_filter_width 6, Hann
-window). The JAX module dispatches to a native C++ resampler when one is
-built; the port runs the numpy path, which that library matches bit for bit.
+window). Both `resample` and `StreamingResampler` run the native C++
+resampler (native/frontend/resample.cc, frontend/native.py) when its
+library is available, and the numpy path otherwise; the two give the same
+samples (tests/test_torch_native.py).
 """
 
 from __future__ import annotations
 
 import math
+import threading
 import wave
 from typing import Tuple
 
 import numpy as np
+
+from . import native
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -71,11 +76,30 @@ def _design_kernel(orig_sr: int, new_sr: int, lowpass_filter_width: int,
     return kernel, up, down, width
 
 
+# one shared one-shot native resampler per design; a call resets its state
+_native_resamplers: dict = {}
+_native_lock = threading.Lock()
+
+
 def resample(x: np.ndarray, orig_sr: int, new_sr: int,
              lowpass_filter_width: int = 6, rolloff: float = 0.99) -> np.ndarray:
     """x: [n] float -> [ceil(n * new_sr / orig_sr)] float32."""
     if orig_sr == new_sr:
         return x
+    if native.available():
+        key = (orig_sr, new_sr, lowpass_filter_width, rolloff)
+        with _native_lock:
+            rs = _native_resamplers.get(key)
+            if rs is None:
+                rs = _native_resamplers[key] = native.NativeResampler(*key)
+            return rs(np.asarray(x, np.float32))
+    return resample_numpy(x, orig_sr, new_sr, lowpass_filter_width, rolloff)
+
+
+def resample_numpy(x: np.ndarray, orig_sr: int, new_sr: int,
+                   lowpass_filter_width: int = 6,
+                   rolloff: float = 0.99) -> np.ndarray:
+    """The numpy path of `resample` (its oracle in the tests)."""
     kernel, up, down, width = _design_kernel(orig_sr, new_sr,
                                              lowpass_filter_width, rolloff)
     n = x.shape[0]
@@ -95,14 +119,20 @@ class StreamingResampler:
 
     `push(chunk)` emits every output sample whose kernel support is already
     complete; `flush()` zero-pads the tail so push* + flush concatenates to
-    `resample(full_signal)`. Not thread-safe: one instance per (stream,
-    identity)."""
+    `resample(full_signal)`. Backed by its own NativeResampler where the
+    native library is available; the numpy path follows the same block
+    emission rule. Not thread-safe: one instance per (stream, identity)."""
 
     def __init__(self, orig_sr: int, new_sr: int,
                  lowpass_filter_width: int = 6, rolloff: float = 0.99):
         self.orig_sr, self.new_sr = orig_sr, new_sr
         self.passthrough = orig_sr == new_sr
+        self._native = None
         if self.passthrough:
+            return
+        if native.available():
+            self._native = native.NativeResampler(
+                orig_sr, new_sr, lowpass_filter_width, rolloff)
             return
         self._kernel, self._up, self._down, self._width = _design_kernel(
             orig_sr, new_sr, lowpass_filter_width, rolloff)
@@ -117,6 +147,8 @@ class StreamingResampler:
         x = np.asarray(x, np.float32).reshape(-1)
         if self.passthrough:
             return x
+        if self._native is not None:
+            return self._native.push(x)
         self._hist = np.concatenate([self._hist, x.astype(np.float64)])
         self._n_in += x.shape[0]
         return self._emit(ready=lambda j: j * self._down - self._width
@@ -125,6 +157,8 @@ class StreamingResampler:
     def flush(self) -> np.ndarray:
         if self.passthrough:
             return np.zeros(0, np.float32)
+        if self._native is not None:
+            return self._native.flush()
         total = -(-self.new_sr * self._n_in // self.orig_sr)
         out = self._emit(ready=lambda j: self._emitted < total)
         return out[: max(0, total - (self._emitted - out.shape[0]))]

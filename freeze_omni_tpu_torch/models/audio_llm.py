@@ -75,7 +75,10 @@ def init_params(cfg: AudioLLMConfig, seed: int = 0, device=None,
     """Random init from a `torch.Generator` seeded with `seed`, on `device`
     (None: the CUDA card; raises without one). quantize_llm draws the frozen
     backbone directly in weight-only int8 or int4 (`quant_bits`;
-    ops/quant.init_quantized_llm), never holding the bf16 tree."""
+    ops/quant.init_quantized_llm), never holding the bf16 tree. With
+    cfg.prompt_finetune the prompt-tuning table `prompt_embeddings`
+    [prompt_num, D] is drawn last, so every other leaf of a seed stays as
+    it is without it."""
     from ..ops.quant import init_quantized_llm
 
     device = resolve_device(device)
@@ -93,6 +96,9 @@ def init_params(cfg: AudioLLMConfig, seed: int = 0, device=None,
         "task_embeddings": torch.randn((cfg.task_num, D), generator=gen,
                                        device=device) * 0.02,
     }
+    if cfg.prompt_finetune:
+        params["prompt_embeddings"] = torch.randn(
+            (cfg.prompt_num, D), generator=gen, device=device) * 0.02
     return params
 
 

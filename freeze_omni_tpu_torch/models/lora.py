@@ -1,4 +1,4 @@
-"""LoRA adapters for the frozen Qwen2 backbone, serving half (counterpart of
+"""LoRA adapters for the frozen Qwen2 backbone (counterpart of
 freeze_omni_tpu/models/lora.py).
 
 - `init`: low-rank (A, B) pairs per decoder-layer projection, stacked
@@ -14,9 +14,9 @@ freeze_omni_tpu/models/lora.py).
   by its reciprocal).
 - `save` / `load`: one .npz of {name.a, name.b} arrays and `__scale__`, the
   JAX package's format, so an adapter trained there serves here.
-
-The training half (`delta`, `qwen2.forward(..., lora=...)`) comes with the
-port of training.
+- `delta`: one layer's scale * (h @ A) @ B, which `qwen2.forward(...,
+  lora=...)` adds to a projection's output while the base weights stay
+  frozen (training stage "lora", training/train_step.lora_lm_loss).
 """
 
 from __future__ import annotations
@@ -76,6 +76,15 @@ def init(cfg: LLMConfig, gen: torch.Generator, rank: int = 8,
                       "b": torch.zeros((L, rank, d_out), dtype=dtype,
                                        device=device)}
     return tree
+
+
+def delta(lora_l: dict, h: torch.Tensor, scale: float) -> torch.Tensor:
+    """One layer's delta: scale * (h @ A) @ B in the adapter's dtype (f32
+    while training over a bf16 backbone), returned in h's dtype so the
+    residual stream keeps its dtype."""
+    a, b = lora_l["a"], lora_l["b"]
+    y = (h.to(a.dtype) @ a) @ b
+    return (y * scale).to(h.dtype)
 
 
 def _delta(a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor:

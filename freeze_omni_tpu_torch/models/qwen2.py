@@ -18,6 +18,7 @@
 Unlike the JAX version, which threads the cache functionally, `forward` and
 `roll_kv` update the cache tensors IN PLACE (and also return the cache, to
 keep the JAX signatures): the per-session KV pool is preallocated once.
+Training differentiates `train_forward` instead, which keeps no cache.
 Parameters keep the JAX layout: layer leaves are stacked [L, ...].
 """
 
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from ..config import LLMConfig
 from ..ops.attention import gqa_decode, prefill_quant
 from ..utils.device import resolve_device
+from . import lora as lora_mod
 from .layers import (NEG_INF, _uniform, embedding, layer_params, linear,
                      linear_init, rms_norm, rms_norm_init, rotary_embed)
 
@@ -223,8 +225,33 @@ def _apply_rot(x, cos, sin):
     return y.to(x.dtype)
 
 
+def _proj(lp, lo, name: str, h: torch.Tensor, lora_scale: float) -> torch.Tensor:
+    """One projection, plus its LoRA delta where the adapter has one."""
+    y = linear(lp[name], h)
+    if lo is not None and name in lo:
+        y = y + lora_mod.delta(lo[name], h, lora_scale)
+    return y
+
+
+def _layer(lp, lo, cfg: LLMConfig, x, cos, sin, attend, lora_scale: float):
+    """One decoder layer; `attend(q, k, v)` -> [B, T, H*dk] is the
+    attention over this layer's cache (serving) or over the fresh K/V
+    (training)."""
+    B, T, _ = x.shape
+    H, Hkv, dk = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h = rms_norm(lp["ln1"], x, cfg.rms_eps)
+    q = _apply_rot(_proj(lp, lo, "q", h, lora_scale).reshape(B, T, H, dk), cos, sin)
+    k = _apply_rot(_proj(lp, lo, "k", h, lora_scale).reshape(B, T, Hkv, dk), cos, sin)
+    v = _proj(lp, lo, "v", h, lora_scale).reshape(B, T, Hkv, dk)
+    x = x + _proj(lp, lo, "o", attend(q, k, v), lora_scale)
+    h2 = rms_norm(lp["ln2"], x, cfg.rms_eps)
+    ffn = F.silu(_proj(lp, lo, "gate", h2, lora_scale)) * _proj(lp, lo, "up", h2, lora_scale)
+    return x + _proj(lp, lo, "down", ffn, lora_scale)
+
+
 def forward(params, cfg: LLMConfig, embeds: torch.Tensor, mask: torch.Tensor,
-            cache: KVCache, pos_offset=0) -> Tuple[torch.Tensor, KVCache]:
+            cache: KVCache, pos_offset=0, lora: Optional[dict] = None,
+            lora_scale: float = 1.0) -> Tuple[torch.Tensor, KVCache]:
     """Prefill/decode step over a static-length chunk of embeddings.
 
     embeds: [B, T, D]; mask: [B, T] bool validity. Valid tokens are appended
@@ -234,8 +261,11 @@ def forward(params, cfg: LLMConfig, embeds: torch.Tensor, mask: torch.Tensor,
 
     pos_offset (int or [B]) is subtracted from the RoPE positions only, never
     from the cache slots: the speech decoder restarts positions after its KV
-    prefix (models/decoder/decoder.py:337-341). (The JAX version's lora
-    arguments serve training, which is not ported yet.)"""
+    prefix (models/decoder/decoder.py:337-341). lora: an optional stacked
+    adapter tree (models/lora.py) whose deltas lora_scale * (h @ A) @ B are
+    added to the projections; the base weights stay frozen. The in-place
+    cache writes make this path unfit for autograd: training runs
+    `train_forward`."""
     B, T, D = embeds.shape
     H, Hkv, dk = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     rep = H // Hkv
@@ -274,37 +304,66 @@ def forward(params, cfg: LLMConfig, embeds: torch.Tensor, mask: torch.Tensor,
             & mask[:, :, None]
     batch_idx = torch.arange(B, device=dev)[:, None].expand(B, T)
 
-    x = embeds
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
-        h = rms_norm(lp["ln1"], x, cfg.rms_eps)
-        q = _apply_rot(linear(lp["q"], h).reshape(B, T, H, dk), cos, sin)
-        k = _apply_rot(linear(lp["k"], h).reshape(B, T, Hkv, dk), cos, sin)
-        v = linear(lp["v"], h).reshape(B, T, Hkv, dk)
-        if quant:
-            kq, ksc = quantize_kv_vectors(k)
-            vq, vsc = quantize_kv_vectors(v)
-            cache.k[i][batch_idx, dest] = kq
-            cache.v[i][batch_idx, dest] = vq
-            cache.k_scale[i][batch_idx, dest] = ksc
-            cache.v_scale[i][batch_idx, dest] = vsc
-            att = prefill_quant(q, cache.k[i], cache.k_scale[i], cache.v[i],
-                                cache.v_scale[i], qend)
-            att = att.reshape(B, T, H * dk).to(q.dtype)
-        else:
+    def attend_cache(i):
+        def attend(q, k, v):
+            if quant:
+                kq, ksc = quantize_kv_vectors(k)
+                vq, vsc = quantize_kv_vectors(v)
+                cache.k[i][batch_idx, dest] = kq
+                cache.v[i][batch_idx, dest] = vq
+                cache.k_scale[i][batch_idx, dest] = ksc
+                cache.v_scale[i][batch_idx, dest] = vsc
+                att = prefill_quant(q, cache.k[i], cache.k_scale[i], cache.v[i],
+                                    cache.v_scale[i], qend)
+                return att.reshape(B, T, H * dk).to(q.dtype)
             cache.k[i][batch_idx, dest] = k.to(cache.k.dtype)
             cache.v[i][batch_idx, dest] = v.to(cache.v.dtype)
             if decode:
                 att = gqa_decode(q[:, 0], cache.k[i], cache.v[i], visible)
-                att = att.reshape(B, 1, H * dk)
-            else:
-                att = _gqa_attention(q, cache.k[i], cache.v[i], attn_mask, rep)
-        x = x + linear(lp["o"], att)
-        h2 = rms_norm(lp["ln2"], x, cfg.rms_eps)
-        x = x + linear(lp["down"], F.silu(linear(lp["gate"], h2)) * linear(lp["up"], h2))
+                return att.reshape(B, 1, H * dk)
+            return _gqa_attention(q, cache.k[i], cache.v[i], attn_mask, rep)
+        return attend
+
+    x = embeds
+    for i in range(cfg.num_layers):
+        lo = None if lora is None else layer_params(lora, i)
+        x = _layer(layer_params(params["layers"], i), lo, cfg, x, cos, sin,
+                   attend_cache(i), lora_scale)
     x = rms_norm(params["final_norm"], x, cfg.rms_eps)
     cache.length.add_(n_new.to(cache.length.dtype))
     return x, cache
+
+
+def train_forward(params, cfg: LLMConfig, embeds: torch.Tensor,
+                  lora: Optional[dict] = None,
+                  lora_scale: float = 1.0) -> torch.Tensor:
+    """Full-sequence causal forward for training, which autograd can
+    differentiate: embeds [B, T, D], every position valid -> hidden
+    [B, T, D]. The JAX training losses run `forward` over a fresh cache of
+    T + 1 slots with an all-valid mask: query t sees slots [0, t + 1), the
+    slots past it score NEG_INF. Here each layer attends over its own fresh
+    K/V under that causal mask, with no cache and no in-place write (a
+    shared cache written by layer i + 1 would invalidate what layer i saved
+    for backward)."""
+    B, T, D = embeds.shape
+    rep = cfg.num_heads // cfg.num_kv_heads
+    dev = embeds.device
+    cos, sin = rotary_embed(torch.arange(T, device=dev), cfg.head_dim,
+                            cfg.rope_theta)
+    cos = cos[None].expand(B, T, -1)
+    sin = sin[None].expand(B, T, -1)
+    idx = torch.arange(T, device=dev)
+    causal = (idx[None, :] <= idx[:, None])[None].expand(B, T, T)
+
+    def attend(q, k, v):
+        return _gqa_attention(q, k, v, causal, rep)
+
+    x = embeds
+    for i in range(cfg.num_layers):
+        lo = None if lora is None else layer_params(lora, i)
+        x = _layer(layer_params(params["layers"], i), lo, cfg, x, cos, sin,
+                   attend, lora_scale)
+    return rms_norm(params["final_norm"], x, cfg.rms_eps)
 
 
 def roll_kv(cfg: LLMConfig, kv: KVCache, prefix_len: torch.Tensor,

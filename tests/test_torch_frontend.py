@@ -82,6 +82,7 @@ def test_gating_chunker_stream_matches_full_fbank_and_jax():
     n = cfg.samples_per_chunk
     chunks = _chunks(audio, n, 6)
     tc = GatingChunker(cfg)
+    tc._native = None   # the port's torch fbank (the native core: test_torch_native.py)
     jc = JChunker(JGating())
     jc._native = None   # the JAX fbank path, not the optional native C++ one
     jc.reset()

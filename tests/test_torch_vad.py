@@ -64,6 +64,7 @@ def test_vad_matches_jax(kind, chunk):
         ours, ref = tvad.EnergyVAD(cfg), jvad.EnergyVAD(jcfg)
     else:
         ours, ref = tvad.LearnedVAD(cfg), jvad.LearnedVAD(jcfg)
+        ours._native = None  # the port's numpy GRU (native: test_torch_native.py)
         ref._native = None   # the JAX numpy GRU (_prob_py)
     chunks = _stream(chunk, chunk)
     (pt, st), (pj, sj) = _run(ours, chunks), _run(ref, chunks)
