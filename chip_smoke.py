@@ -252,7 +252,28 @@ exits nonzero without printing a result. Phases:
    on the adapter's delta must have slope 0.7-1.3; (d) three gan_steps at
    the flagship codec (autoencode with the VQ losses, 2 x 0.5 s of speech
    surrogate) and a dead-code reseed, then training/vad.train for 3 steps
-   of 8 mixtures: finite losses. Prints its wall time.
+   of 8 mixtures: finite losses. Prints its wall time;
+15. multi-GPU serving (parallel/, runtime/multihost_serving.py), its ranks
+   processes of this script (`--tp-rank <job.json>`) met at a free
+   localhost port: NCCL with a card each where the host has a card for
+   every rank, else gloo with the ranks sharing the card (printed with the
+   card count; no step time of ranks sharing a card is a TP speed). (a)
+   two ranks at tp = 2, Qwen2-7B widths cut to 2 LLM layers, int8 then
+   int4, phase 4's dual ticks against one rank on the card: |dprob| <=
+   2e-3, decisions (off the threshold's 2e-3 band) and KV lengths equal,
+   both ranks' predictions identical; (b) phase 9's traffic at full width
+   and depth, --quant 4 --kv_quant 8, 8 sessions, through
+   DuplexService(engine=PrimaryDriver(...)) on rank 0 and run_follower on
+   rank 1 at tp = 2; (c) the same over (data 2, model 1), two "hosts"
+   joined as serve --coordinator joins them. Each rank zeroes its launch
+   counts before the traffic and reads them after: K2 and K5 must launch on
+   every rank, K1, K4 and K5's small-N path on every rank whose rows hold
+   a speaking session; each rank's peak memory and the step p50/p90
+   printed; (d) K1 and K5 on one layer's 7 projections at N = 232 and
+   N = 8 (K1 with the int8 lm_head) and K2 at T = 29 and T = 1, at the
+   shapes one rank of tp = 2 and of tp = 4 runs, each beside its bound, its
+   plain version and the library call (phase 8's timers). Prints its wall
+   time.
 
 The last lines: the nvidia-smi line, one {"kernels": [...]} JSON line and
 the device JSON line.
@@ -261,6 +282,7 @@ the device JSON line.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -553,6 +575,25 @@ def ptxas_report(text):
 
 K1_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
 TILE_NS = (17, 89, 232, 233, 1856)   # the tile path's N in phase 3
+# N of the sharded engines' projections (phase 15): a text step's padded
+# rows, the role prefill's 89 tokens, a tick of 8 sessions' 29 tokens at
+# data 1 and of 4 at data 2
+SHARD_NS = (1, 4, 8, 89, 116, 232)
+
+
+def shard_shapes():
+    """(tp, K, O) of one rank's q, k/v, o, gate/up, down and lm_head at
+    tp = 2 and 4 of the flagship (parallel/mesh: q, k/v, gate/up and the
+    lm_head cut on O, o and down on K)."""
+    from freeze_omni_tpu_torch.config import flagship_system
+
+    llm = flagship_system().audio_llm.llm
+    D, hdk = llm.hidden, llm.num_heads * llm.head_dim
+    kv = llm.num_kv_heads * llm.head_dim
+    return [(tp, K, O) for tp in TP_SHARD_WAYS
+            for K, O in ((D, hdk // tp), (D, kv // tp), (hdk // tp, D),
+                         (D, llm.ffn // tp), (llm.ffn // tp, D),
+                         (D, llm.vocab_size // tp))]
 
 
 def session_chunk_ns():
@@ -718,6 +759,7 @@ def graph_equals_eager(fn, args):
 def phase_kernel_parity():
     import torch
 
+    t0 = time.perf_counter()
     from freeze_omni_tpu_torch.ops import attention as att
     from freeze_omni_tpu_torch.ops import quant_matmul as qm
 
@@ -728,6 +770,7 @@ def phase_kernel_parity():
                 for N in sorted({1, 8, *TILE_NS, *session_chunk_ns()})]
     k1_cases += [(3584, 152064, N) for N in (1, 8, 89)]   # the int8 lm_head
     k1_cases += [(3776, 520, N) for N in (17, 232)]    # ragged O
+    k1_cases += [(K, O, N) for (_, K, O) in shard_shapes() for N in SHARD_NS]
     for (K, O, N) in k1_cases:
         x, w_q, scale = k1_inputs(N, K, O, seed=N + K + O)
         w_q[:16, :64] = -128   # the ends of int8, -128 beyond the quantizer's
@@ -757,6 +800,9 @@ def phase_kernel_parity():
     cases += [(3584, 3584, N, 128) for N in (8, qm.SMALL_N, 17, 232)]  # coarser group
     cases += [(18944, 3584, 232, 128)]   # K = 18944 split in whole groups of 128
     cases += [(3776, 520, N, 64) for N in (5, 17, 232)]   # ragged O, 59 groups
+    # the shard shapes (o at tp = 4: K = 896, 14 groups)
+    cases += [(K, O, N, 64) for (_, K, O) in shard_shapes()
+              for N in sorted({*SHARD_NS, qm.SMALL_N})]
     for (K, O, N, group) in cases:
         for dtype, dtol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             x, w_q4, scale4 = k5_inputs(N, K, O, group, dtype, seed=N + K + O)
@@ -786,8 +832,12 @@ def phase_kernel_parity():
                                      f"{err}")
             del x, w_q4, scale4, y, y2, ref
     k2_err = 0.0
-    for label, B, T, S, qend_kind in K2_CASES:
-        q, k_q, k_s, v_q, v_s, qend = k2_inputs(B, T, 28, 4, 128, S, seed=S,
+    # one card's heads, then one rank's at tp = 2 and 4 (7 query heads on
+    # one kv head)
+    k2_heads = [(28, 4)] + [(28 // tp, 4 // tp) for tp in TP_SHARD_WAYS]
+    for (label, B, T, S, qend_kind), (H, Hkv) in itertools.product(K2_CASES,
+                                                                   k2_heads):
+        q, k_q, k_s, v_q, v_s, qend = k2_inputs(B, T, H, Hkv, 128, S, seed=S,
                                                 qend_kind=qend_kind)
         before = att.prefill_quant.launches
         out = att.prefill_quant(q, k_q, k_s, v_q, v_s, qend)
@@ -796,22 +846,24 @@ def phase_kernel_parity():
         torch.cuda.synchronize()
         valid = qend > 0
         if att.prefill_quant.launches - before != 2:
-            raise AssertionError(f"K2 {label}: launch count rose by "
+            raise AssertionError(f"K2 {label} H={H} Hkv={Hkv}: launch count rose by "
                                  f"{att.prefill_quant.launches - before}, not 2")
         if not torch.equal(out, out2):
-            raise AssertionError(f"K2 gave two results for one input ({label})")
+            raise AssertionError(f"K2 gave two results for one input ({label}, "
+                                 f"H={H} Hkv={Hkv})")
         if not torch.isfinite(out.float()).all() or (out[~valid] != 0).any():
             raise AssertionError(f"K2 wrote non-finite values or a nonzero "
-                                 f"masked row ({label})")
+                                 f"masked row ({label}, H={H} Hkv={Hkv})")
         err, ok = max_violation(out[valid], ref[valid], tol)
         k2_err = max(k2_err, err)
-        plan = att.prefill_plan(B, T, 28, 4, 128, S)
-        log(f"[parity] K2 {label} B={B} T={T} H=28 Hkv=4 dk=128 S={S} (rows "
+        plan = att.prefill_plan(B, T, H, Hkv, 128, S)
+        log(f"[parity] K2 {label} B={B} T={T} H={H} Hkv={Hkv} dk=128 S={S} (rows "
             f"{plan.rows}, splits {plan.splits}): max_abs_err {err:.3e} on "
             f"{int(valid.sum())} valid rows; qend=0 rows zero; two calls "
             f"bit-identical")
         if not ok:
-            raise AssertionError(f"K2 disagrees with its plain version ({label})")
+            raise AssertionError(f"K2 disagrees with its plain version ({label}, "
+                                 f"H={H} Hkv={Hkv})")
     dec_err = {"decode_attention": 0.0, "decode_attention_blocked": 0.0}
     for (label, B, H, Hkv, dk, S, q_dt, kv_dt, lengths) in DECODE_CASES:
         q_dtype, kv_dtype = getattr(torch, q_dt), getattr(torch, kv_dt)
@@ -883,6 +935,7 @@ def phase_kernel_parity():
             f"splits: lengths {list(SESSION_LENGTHS)} (NaN past each), "
             f"max_abs_err {[f'{e:.3e}' for e in errs]} (tol {dtol}); length 0 "
             f"zero; two calls bit-identical")
+    log(f"[parity] {time.perf_counter() - t0:.1f} s wall")
     return {"quant_matmul": k1_err, "quant_matmul4": max(k5_err.values()),
             "quant_matmul4_paths": k5_err, "prefill_quant": k2_err, **dec_err}
 
@@ -1308,7 +1361,6 @@ def phase_service(smi, int8_llm_bytes):
     speak (respond_fast_many), the users fall silent, and the service runs
     the continuation rounds and the pooled sentences until flush_tts finds
     the pool empty."""
-    import itertools
 
     import numpy as np
     import torch
@@ -2088,7 +2140,6 @@ def phase_sessions(smi):
     pipeline, each pumping on its own worker thread as two websocket clients
     get them (Server._open_session: warm-up, then start)."""
     import dataclasses
-    import itertools
     import threading
 
     import numpy as np
@@ -3914,6 +3965,549 @@ def phase_training(smi):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 15: multi-GPU serving (parallel/, runtime/multihost_serving.py)
+# ---------------------------------------------------------------------------
+
+TP_RANK_FLAG = "--tp-rank"     # python3 chip_smoke.py --tp-rank <job.json>
+TP_DEVICE = "cuda"
+TP_PARITY_ATOL = 2e-3
+TP_PARITY_TICKS = 5
+TP_SERVE_STEPS = 200           # a serving run's step limit
+TP_RANK_TIMEOUT = 480          # seconds a group of ranks may take
+TP_SHARD_WAYS = (2, 4)         # the shard shapes of phase 15d
+
+
+def tp_layout(ranks):
+    """(backend, ranks per card) of `ranks` processes on this host: NCCL
+    with a card each where there are enough cards, else gloo with the
+    ranks sharing the card (NCCL refuses two ranks on one device)."""
+    import torch
+
+    from freeze_omni_tpu_torch.parallel.multihost import choose_backend
+
+    backend = choose_backend(TP_DEVICE, ranks)
+    return backend, 1 if backend == "nccl" else -(-ranks // torch.cuda.device_count())
+
+
+def run_ranks(jobs, label):
+    """One process per job (this script with TP_RANK_FLAG), all started
+    together and met at a free localhost port. Waits for every rank; if one
+    fails or the time runs out, kills the others and raises with each
+    rank's log. Returns the ranks' results in job order."""
+    import shutil
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    tmp = tempfile.mkdtemp(prefix="tp-ranks-")
+    procs = []
+    for i, job in enumerate(jobs):
+        job = dict(job, coordinator=coordinator, machine_ranks=len(jobs),
+                   out=os.path.join(tmp, f"rank{i}.json"))
+        path = os.path.join(tmp, f"job{i}.json")
+        with open(path, "w") as f:
+            json.dump(job, f)
+        logf = open(os.path.join(tmp, f"rank{i}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), TP_RANK_FLAG, path],
+            stdout=logf, stderr=subprocess.STDOUT), logf, job))
+    t0 = time.perf_counter()
+    fault = None
+    try:
+        while fault is None and any(p.poll() is None for p, _, _ in procs):
+            bad = [p.returncode for p, _, _ in procs if p.poll() not in (None, 0)]
+            if bad:
+                fault = f"a rank exited with {bad[0]}"
+            elif time.perf_counter() - t0 > TP_RANK_TIMEOUT:
+                fault = f"the ranks ran past {TP_RANK_TIMEOUT} s"
+            else:
+                time.sleep(0.5)
+        if fault is None and any(p.returncode for p, _, _ in procs):
+            fault = f"exit codes {[p.returncode for p, _, _ in procs]}"
+    finally:
+        for p, logf, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    if fault is not None:
+        for i in range(len(jobs)):
+            with open(os.path.join(tmp, f"rank{i}.log")) as f:
+                log(f"[tp] {label} rank {i} log (tail):\n{f.read()[-6000:]}")
+        raise AssertionError(f"phase 15 {label}: {fault}")
+    results = []
+    for _, _, job in procs:
+        with open(job["out"]) as f:
+            results.append(json.load(f))
+    shutil.rmtree(tmp)
+    log(f"[tp] {label}: {len(jobs)} ranks done in {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def tp_rank(job_path):
+    """A rank of phase 15: join the job, run its mode, write its result."""
+    import torch
+    import torch.distributed as dist
+
+    from freeze_omni_tpu_torch.parallel import multihost as mh
+
+    with open(job_path) as f:
+        job = json.load(f)
+    # the ranks share this machine's cores (the host frontend, gloo)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // job["machine_ranks"]))
+    if job["hosts"] > 1:
+        # one rank a host, the serve --coordinator layout; here the "hosts"
+        # are processes of this machine, which share its cards
+        n = torch.cuda.device_count()
+        dev = mh.initialize(*mh.resolve_job(job["coordinator"], job["hosts"],
+                                            job["host_id"]),
+                            device=f"{TP_DEVICE}:{job['host_id'] % n}",
+                            backend=mh.choose_backend(TP_DEVICE, job["hosts"]))
+    else:                  # one host, local ranks: the serve --tp layout
+        dev = mh.initialize(job["coordinator"], 1, 0, job["local_ranks"],
+                            job["local_rank"], TP_DEVICE)
+    mesh = mh.make_global_mesh(("data", "model"), model_par=job["model"])
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": mesh.rank, "backend": dist.get_backend(), "device": str(dev),
+           "mesh": list(mesh.shape)}
+    out.update({"parity": tp_rank_parity, "serve": tp_rank_serve}[job["mode"]](
+        job, mesh, dev))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(job["out"], "w") as f:
+        json.dump(out, f)
+    mh.sync("phase 15")
+    mh.shutdown()
+    return 0
+
+
+def tp_ticks(engine, cfg, n_ticks):
+    """Phase 4's dual ticks of two sessions (dev-wav fbank windows): the
+    user predictions and the KV lengths of every slot after each tick."""
+    sids = ["p0", "p1"]
+    for sid in sids:
+        engine.open_session(sid)
+    feeds = session_feeds(cfg.duplex.gating, len(sids), n_ticks)
+    ticks, lengths = [], []
+    for tick in range(n_ticks):
+        submit_tick((engine,), sids, feeds, tick)
+        ticks.append({str(k): v for k, v in engine.tick().get("user", {}).items()})
+        lengths.append([int(x) for x in engine.store.lengths()])
+    return {"ticks": ticks, "lengths": lengths}
+
+
+def tp_parity_engine(bits, device, mesh=None):
+    import torch
+
+    from freeze_omni_tpu_torch.models import audio_llm
+    from freeze_omni_tpu_torch.runtime.engine import ServingEngine
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = parity_config()
+    params = audio_llm.init_params(cfg.audio_llm, seed=1, device=device,
+                                   quantize_llm=True, quant_bits=bits)
+    return cfg, ServingEngine(cfg, params, device=device, mesh=mesh)
+
+
+def tp_rank_parity(job, mesh, dev):
+    import gc
+
+    import torch
+
+    out = {}
+    for bits in (8, 4):
+        cfg, engine = tp_parity_engine(bits, dev, mesh)
+        zero_launches()
+        out[f"int{bits}"] = dict(tp_ticks(engine, cfg, TP_PARITY_TICKS),
+                                 launches=read_launches())
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve_parts(device):
+    """The int4 server's config, LLM and speech weights, drawn as
+    bin/serve.Server draws them for SERVE_ARGV (flagship, --quant 4
+    --kv_quant 8 --max_sessions 8 --respond --seed 0)."""
+    import dataclasses
+
+    import torch
+
+    from freeze_omni_tpu_torch.config import flagship_system
+    from freeze_omni_tpu_torch.models import audio_llm
+    from freeze_omni_tpu_torch.models import codec as codec_mod
+    from freeze_omni_tpu_torch.models import speech_decoder as sd
+
+    cfg = flagship_system()
+    cfg = dataclasses.replace(cfg, serving=dataclasses.replace(
+        cfg.serving, max_sessions=8, pipeline_ticks=False, kv_quant_bits=8))
+    params = audio_llm.init_params(cfg.audio_llm, seed=0, device=device,
+                                   llm_dtype=torch.bfloat16, quantize_llm=True,
+                                   quant_bits=4)
+    params = audio_llm.cast_frontend(params, torch.bfloat16)
+    g = torch.Generator(device=device).manual_seed(7)
+    tts = {"decoder": sd.init_params(cfg.tts.decoder, g, device=device),
+           "codec": codec_mod.init_params(cfg.tts.codec, g, device=device)}
+    return cfg, params, tts
+
+
+def tp_rank_serve(job, mesh, dev):
+    """Phase 9's traffic through DuplexService(engine=PrimaryDriver(...))
+    on rank 0; the other ranks replay it (run_follower)."""
+    import gc
+
+    import torch
+
+    from freeze_omni_tpu_torch.runtime.engine import ServingEngine
+    from freeze_omni_tpu_torch.runtime.multihost_serving import (PrimaryDriver,
+                                                                 run_follower)
+
+    torch.backends.cudnn.allow_tf32 = True   # serving default
+    cfg, params, tts = tp_serve_parts(dev)
+    engine = ServingEngine(cfg, params, seed=0, kv_dtype=torch.bfloat16,
+                           device=dev, mesh=mesh)
+    del params   # the full tree: the engine keeps this rank's shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    # the draw's peak (the full tree before the cut), then what stays
+    memory = {"draw_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "resident_gib": torch.cuda.memory_allocated() / 2**30}
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    out = {}
+    if mesh.rank == 0:
+        drv = PrimaryDriver(engine, tts)
+        try:
+            out = tp_traffic(drv, cfg, tts, job["steps"])
+        finally:
+            drv.stop()   # releases the followers whatever happened here
+    else:
+        run_follower(engine, tts)
+    out["launches"] = read_launches()
+    return dict(out, **memory)
+
+
+def tp_traffic(drv, cfg, tts, max_steps):
+    """Phase 9's traffic on a DuplexService over `drv`: 8 users stream
+    speech, the system line a quiet noise; once every user's first IPU has
+    closed, one step at threshold 0 makes the sessions inside their next
+    IPU speak, then the service runs their rounds and pooled sentences to
+    the end. Returns the steps' times and kinds; raises on a missing event,
+    an error event or bad audio."""
+
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch.runtime.service import DuplexService
+
+    svc = DuplexService(cfg, engine=drv, seed=0, tts_params=tts)
+    texts, count = fixed_sentences(), itertools.count()
+    prepare = svc._prepare_sentence
+    svc._prepare_sentence = lambda text, hids: prepare(
+        texts[next(count) % len(texts)], hids)
+    activity = {"respond": 0, "continue": 0, "pool": 0}
+
+    def counted(fn, key, when=lambda: True):
+        def run(*a, **k):
+            if when():
+                activity[key] += 1
+            return fn(*a, **k)
+        return run
+
+    pool = svc._tts
+    drv.respond_fast_many = counted(drv.respond_fast_many, "respond")
+    drv.continue_segments_submit = counted(drv.continue_segments_submit, "continue")
+    pool.step_submit = counted(pool.step_submit, "pool", when=lambda: bool(pool.jobs))
+    svc.resp_threshold = 2.0
+    sids = [f"u{i}" for i in range(cfg.serving.max_sessions)]
+    sinks = {sid: svc.open_session(sid) for sid in sids}
+    n = cfg.duplex.gating.samples_per_chunk
+    users = user_streams(len(sids), n)
+    rng = np.random.RandomState(0)
+
+    def events(sid, name, identity=None):
+        return [e for e in sinks[sid].events_of(name)
+                if identity is None or e.get("identity") == identity]
+
+    steps, trigger, responders, pos = [], None, [], 0
+    for k in range(max_steps):
+        talking = trigger is None
+        for i, sid in enumerate(sids):
+            chunk = users[i][pos:pos + n] if talking else np.zeros(0, np.float32)
+            chunk = np.concatenate([chunk, np.zeros(n - len(chunk), np.float32)])
+            svc.enqueue_audio_data(sid, "user", {"audio": chunk})
+            svc.enqueue_audio_data(sid, "system", {
+                "audio": (LINE_NOISE * rng.randn(n)).astype(np.float32)})
+        pos += n
+        closed = all(any(e["status"] == "ipu_el"
+                         for e in events(sid, "vad_event", "user")) for sid in sids)
+        in_ipu = sum(svc.sessions[sid].vad["user"].in_speech for sid in sids)
+        fire = talking and closed and (in_ipu >= len(sids) // 2 or
+                                       (in_ipu and k >= 120))
+        if fire:
+            svc.resp_threshold = 0.0
+        for key in activity:
+            activity[key] = 0
+        t0 = time.perf_counter()
+        svc.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if fire:
+            svc.resp_threshold = 2.0
+            trigger = k
+            responders = [sid for sid in sids if events(sid, "response_audio")]
+            if not responders:
+                raise AssertionError("the threshold-0 step made no session speak")
+        steps.append({"ms": ms, "kind": "response" if any(activity.values())
+                      else "tick", **dict(activity)})
+        if trigger is not None and k > trigger and pool.n_active == 0 and all(
+                fe.resp is None and fe.tts_key is None and not fe.tts_queue
+                for fe in svc.sessions.values()):
+            break
+    else:
+        raise AssertionError(f"the response did not finish in {max_steps} steps")
+    svc.flush_tts()
+    for sid in sids:
+        st = [e["status"] for e in events(sid, "vad_event", "user")]
+        if "ipu_sl" not in st or "ipu_el" not in st:
+            raise AssertionError(f"{sid}: user VAD events {st}")
+        upd = events(sid, "dialog_state_update")
+        if not upd or not all(np.isfinite([u["probs"]["state_1"],
+                                           u["probs"]["state_2"]]).all() for u in upd):
+            raise AssertionError(f"{sid}: no finite dialog_state_update")
+        if events(sid, "error"):
+            raise AssertionError(f"{sid}: error events {events(sid, 'error')}")
+    for sid in responders:
+        for a in events(sid, "response_audio"):
+            if not (np.isfinite(a["pcm"]).all()
+                    and np.abs(a["pcm"]).max(initial=0.0) <= 1.0):
+                raise AssertionError(f"{sid}: response PCM not finite or outside [-1, 1]")
+    if not any(a["sr"] == 16000 for sid in responders
+               for a in events(sid, "response_audio")):
+        raise AssertionError("no pooled sentence audio")
+    return {"tick_ms": [s["ms"] for s in steps if s["kind"] == "tick"],
+            "response_ms": [s["ms"] for s in steps if s["kind"] == "response"],
+            "steps": len(steps), "trigger": trigger, "responders": len(responders),
+            "responder_slots": [drv.store.slot_of(sid) for sid in responders],
+            "rounds": sum(s["continue"] for s in steps)}
+
+
+def phase_tp_parity(smi):
+    """15a: two ranks on the card (and four, on a host with four cards),
+    tp = 2 (4), at Qwen2-7B width cut to 2 LLM layers, int8 and int4,
+    against the single-rank engine on the card."""
+    import gc
+
+    import torch
+
+    thr = parity_config().duplex.resp_threshold
+    want = {}
+    for bits in (8, 4):
+        cfg, engine = tp_parity_engine(bits, "cuda")
+        want[bits] = tp_ticks(engine, cfg, TP_PARITY_TICKS)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    for tp in [t for t in (2, 4) if t == 2 or t <= torch.cuda.device_count()]:
+        ranks = run_ranks([{"mode": "parity", "hosts": 1, "local_ranks": tp,
+                            "local_rank": r, "model": tp} for r in range(tp)],
+                          f"15a parity tp={tp}")
+        tp_parity_check(ranks, want, tp, thr, smi)
+
+
+def tp_parity_check(ranks, want, tp, thr, smi):
+    import numpy as np
+
+    backend, per_card = tp_layout(tp)
+    for bits in (8, 4):
+        worst, compared = 0.0, 0
+        for r in ranks:
+            got = r[f"int{bits}"]
+            if got["lengths"] != want[bits]["lengths"]:
+                raise AssertionError(f"int{bits} rank {r['rank']}: KV lengths "
+                                     f"{got['lengths']} vs {want[bits]['lengths']}")
+            for t, (gt, wt) in enumerate(zip(got["ticks"], want[bits]["ticks"])):
+                if sorted(gt) != sorted(wt):
+                    raise AssertionError(f"int{bits} tick {t}: predicted slots differ")
+                for slot, pw in wt.items():
+                    for key in ("state_1", "state_2"):
+                        pg, pc = gt[slot][key], pw[key]
+                        worst = max(worst, abs(pg - pc))
+                        compared += 1
+                        if not (np.isfinite(pg) and abs(pg - pc) <= TP_PARITY_ATOL):
+                            raise AssertionError(
+                                f"int{bits} rank {r['rank']} tick {t} slot {slot} "
+                                f"{key}: tp={tp} {pg} vs one rank {pc}")
+                        if abs(pc - thr) > TP_PARITY_ATOL and (pg > thr) != (pc > thr):
+                            raise AssertionError(f"int{bits} tick {t}: decision differs")
+            for key in ("quant_matmul" if bits == 8 else "quant_matmul4", "prefill_quant"):
+                if not got["launches"][key]:
+                    raise AssertionError(f"int{bits} rank {r['rank']}: {key} not launched")
+        if not compared:
+            raise AssertionError(f"int{bits}: no user prediction was compared")
+        if any(r[f"int{bits}"]["ticks"] != ranks[0][f"int{bits}"]["ticks"]
+               for r in ranks):
+            raise AssertionError(f"int{bits}: the ranks' predictions differ")
+        log(f"[tp] 15a int{bits} weights, 2-layer flagship widths, tp={tp} on "
+            f"{backend} ({per_card} ranks per card; {smi}): {TP_PARITY_TICKS} dual "
+            f"ticks x 2 sessions against one rank on the card: max |dprob| "
+            f"{worst:.3e} over {compared} probabilities (atol {TP_PARITY_ATOL}); "
+            f"decisions and KV lengths equal; "
+            f"every rank's predictions identical")
+
+
+def tp_serve_report(label, ranks, smi):
+    """Check and print a serving run: every rank's K1/K2/K4/K5 launches,
+    peak memory, step times. Every rank runs the tick (K5's tile path, K2);
+    a rank whose rows hold a speaking session runs its response (K1 in the
+    int8 lm_head, K5's small-N path in the text decode, K4 in the speech
+    decoder), which under 'data' > 1 is not every rank."""
+    import torch
+
+    backend = ranks[0]["backend"]
+    per_card = 1 if backend == "nccl" else -(-len(ranks) // torch.cuda.device_count())
+    p = ranks[0]
+    data = p["mesh"][0]
+    rows = 8 // data   # tp_serve_parts serves 8 sessions
+    speaking = {slot // rows for slot in p["responder_slots"]}
+    for r in ranks:
+        need = ["prefill_quant", "quant_matmul4"]
+        if r["rank"] // p["mesh"][1] in speaking:
+            need += ["quant_matmul", "decode_attention_blocked", "quant_matmul4_small"]
+        for key in need:
+            if not r["launches"][key]:
+                raise AssertionError(f"{label} rank {r['rank']}: {key} not launched")
+        log(f"[tp] {label} rank {r['rank']} mesh {r['mesh']} on {r['device']}: "
+            f"launches {r['launches']}; device memory: the weights' draw peak "
+            f"{r['draw_peak_gib']:.2f} GiB (the full tree before the cut), "
+            f"resident after the cut {r['resident_gib']:.2f} GiB, serving peak "
+            f"{r['peak_gib']:.2f} GiB")
+    log(f"[tp] {label} ({backend}, {per_card} ranks per card, {smi}): "
+        f"{p['steps']} steps, threshold-0 step {p['trigger']}, {p['responders']} "
+        f"sessions spoke, {p['rounds']} continuation rounds; tick-only step "
+        f"(first 5 excluded) {pct(p['tick_ms'][5:])}; steps with response work "
+        f"{pct(p['response_ms'])}" + ("" if backend == "nccl" else
+                                      "; ranks sharing one card: not a TP speed"))
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+def phase_tp_serve(smi):
+    """15b: phase 9's traffic at full width and depth, tp = 2, through
+    DuplexService(engine=PrimaryDriver(...)) and the follower; 15c: the
+    same with (data 2, model 1), two "hosts" joined the serve
+    --coordinator way."""
+    import torch
+
+    n = torch.cuda.device_count()
+    backend, per_card = tp_layout(2)
+    log(f"[tp] {n} card(s); 2 local ranks take {backend} with {per_card} "
+        f"rank(s) per card")
+    if n < 2:
+        log("[tp] one card on this host: no NCCL run (NCCL refuses two ranks on "
+            "one device); the TP step times below are ranks sharing the card")
+    b = run_ranks([{"mode": "serve", "hosts": 1, "local_ranks": 2, "local_rank": r,
+                    "model": 2, "steps": TP_SERVE_STEPS} for r in range(2)],
+                  "15b tp=2 serving")
+    launches = tp_serve_report("15b (data 1, model 2)", b, smi)
+    c = run_ranks([{"mode": "serve", "hosts": 2, "host_id": r, "model": 1,
+                    "steps": TP_SERVE_STEPS} for r in range(2)],
+                  "15c two-host serving")
+    for k, v in tp_serve_report("15c (data 2, model 1)", c, smi).items():
+        launches[k] += v
+    # 15e, where every rank can have a card: the same traffic on one rank
+    # and, with four cards, at tp = 4, to read 15b against (one call, one host)
+    for tp in [t for t in (1, 4) if n >= 2 and t <= n]:
+        e = run_ranks([{"mode": "serve", "hosts": 1, "local_ranks": tp,
+                        "local_rank": r, "model": tp, "steps": TP_SERVE_STEPS}
+                       for r in range(tp)], f"15e tp={tp} serving")
+        for k, v in tp_serve_report(f"15e (data 1, model {tp})", e, smi).items():
+            launches[k] += v
+    return launches
+
+
+def tp_k2_cache(B, T, H, Hkv, S, kind, seed):
+    """K2's inputs at a shard shape as a one-layer cache and its qend."""
+    from freeze_omni_tpu_torch.models.qwen2 import KVCache
+
+    _, k_q, k_s, v_q, v_s, qend = k2_inputs(B, T, H, Hkv, 128, S, seed, kind)
+    return KVCache(k=k_q[None], v=v_q[None], length=qend[:, -1],
+                   k_scale=k_s[None], v_scale=v_s[None]), qend
+
+
+def phase_tp_kernel_times(kernels, smi):
+    """15d: K1 and K5 on one layer's 7 projections at N = 232 and N = 8
+    (K1 with the int8 lm_head at N = 8), and K2 at the tick (T = 29) and a
+    text step (T = 1), at the shapes one rank of tp = 2 and of tp = 4 runs
+    (parallel/mesh.shard_llm_tree of a one-layer flagship-width tree), each
+    beside its bound, its plain version and the library call."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from freeze_omni_tpu_torch.config import flagship_system
+    from freeze_omni_tpu_torch.ops.quant import init_quantized_llm
+    from freeze_omni_tpu_torch.parallel.mesh import shard_llm_tree
+
+    cfg = flagship_system().audio_llm.llm
+    one = dataclasses.replace(cfg, num_layers=1)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    out = {"quant_matmul": {}, "quant_matmul4": {}, "prefill_quant": {}}
+
+    def short(t):
+        return {k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms", "library_device_ms")
+                if k in t}
+
+    for bits, key in ((8, "quant_matmul"), (4, "quant_matmul4")):
+        llm = init_quantized_llm(one, g, "cuda", bits=bits)
+        for tp in TP_SHARD_WAYS:
+            shard = shard_llm_tree({k: v for k, v in llm.items()}, 0, tp)
+            if bits == 8:
+                tick = k1_layer(shard["layers"], None, 232, g)
+                step = k1_layer(shard["layers"], shard["lm_head"], 8, g)
+            else:
+                tick = k5_layer(shard["layers"], 232, g)
+                step = k5_layer(shard["layers"], 8, g)
+            for label, t in (("7 projections at N=232", tick),
+                             ("7 projections" + (" + lm_head" if bits == 8 else "")
+                              + " at N=8", step)):
+                log(f"[tp] 15d K{1 if bits == 8 else 5} tp={tp} one layer's {label} "
+                    f"({smi}): kernel {t['ms']:.4f} ms eager, {t['device_ms']:.4f} "
+                    f"device, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+                    f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms"
+                    + (f" (device {t['library_device_ms']})"
+                       if "library_device_ms" in t else ""))
+            out[key][f"tp{tp}"] = {"N232": short(tick), "N8": short(step)}
+            del shard
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+    for tp in TP_SHARD_WAYS:
+        H, Hkv = cfg.num_heads // tp, cfg.num_kv_heads // tp
+        res = {}
+        for label, T, kind in (("T29", 29, "tick"), ("T1", 1, "text")):
+            kv, qend = tp_k2_cache(8, T, H, Hkv, 1024, kind, seed=tp)
+            r = k2_time(kv, qend, H, g)
+            log(f"[tp] 15d K2 tp={tp} B=8 {label} H={H} Hkv={Hkv} S=1024 "
+                f"({smi}), {r['splits']} splits: kernel {r['ms']:.4f} ms eager, "
+                f"{r['device_ms']:.4f} device, bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library none "
+                f"(SDPA on bf16 K/V {r['sdpa_bf16_ms']:.4f} ms device: a ceiling)")
+            res[label] = dict(short(r), sdpa_bf16_ms=r["sdpa_bf16_ms"])
+            del kv, qend
+        out["prefill_quant"][f"tp{tp}"] = res
+    for entry in kernels:
+        key = entry["name"].split(" ")[0]
+        if key in out:
+            entry["tp_shard_shapes"] = out[key]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import gc
@@ -4002,6 +4596,17 @@ def main() -> int:
     zero_launches()
     phase_native_frontend(smi, service_front)
     phase_training(smi)   # reads its own launch counts: none may launch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    phase_tp_parity(smi)
+    served = phase_tp_serve(smi)   # the ranks' own counts of the serving runs
+    phase_tp_kernel_times(kernels, smi)
+    log(f"[phase 15] {time.perf_counter() - t15:.1f} s wall")
+    for entry in kernels:
+        key = entry["name"].split(" ")[0]
+        entry["launches_phase15"] = served[key]
+        entry["launches"] += served[key]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -4011,4 +4616,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == TP_RANK_FLAG:
+        sys.exit(tp_rank(sys.argv[2]))   # a rank process of phase 15
     sys.exit(main())

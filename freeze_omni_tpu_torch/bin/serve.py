@@ -53,18 +53,33 @@ overrides its scale. `--state_dir` (with --engine) restores the sessions
 saved there at boot and snapshots every live session at shutdown; a client
 that reconnects with its sid resumes its dialog, and a restored session
 whose client does not return within `--resume_grace` seconds is closed.
-Multi-GPU serving is not in the port yet: its flags exit naming their item
-in ROADMAP.md.
+
+Multi-GPU serving (--engine only). `--tp k` runs the frozen LLM
+tensor-parallel over k processes, one per card: this process (rank 0) owns
+the sockets and drives a lockstep PrimaryDriver, and starts k - 1 follower
+processes (`python -m freeze_omni_tpu_torch.bin.serve` with the same
+command line, and the rank in FO_SERVE_RANK) that replay its steps
+(runtime/multihost_serving.run_follower). `--coordinator host:port
+--num_hosts N --host_id h` joins a job of N hosts (run the same command on
+each host, with its --host_id; the FO_COORDINATOR / FO_NUM_HOSTS /
+FO_HOST_ID env triple works too): session rows shard over the hosts, the
+LLM over each host's --tp ranks, and host 0's rank 0 serves the sockets.
+The ranks meet over NCCL with one card each; `--device cpu` runs them as
+CPU processes over gloo.
+  python -m freeze_omni_tpu_torch.bin.serve --preset flagship --engine \
+      --quant 4 --kv_quant 8 --respond --tp 2
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import atexit
 import base64
 import dataclasses
 import json
 import os
+import subprocess
 import sys
 import threading
 from pathlib import Path
@@ -77,13 +92,9 @@ from ..config import (flagship_system, load_reference_app_yaml,
 
 MONITOR_HTML = Path(__file__).resolve().parents[2] / "freeze_omni_tpu" / "bin" / "monitor.html"
 
-_WAITING = (   # flag given -> SystemExit naming the ROADMAP item it waits for
-    ("tp", "ROADMAP.md D9 (multi-GPU serving)"),
-    ("coordinator", "ROADMAP.md D9 (multi-GPU serving)"),
-    ("num_hosts", "ROADMAP.md D9 (multi-GPU serving)"),
-    ("host_id", "ROADMAP.md D9 (multi-GPU serving)"),
-)
-_ENGINE_ONLY = ("tp", "coordinator")   # refused without --engine
+# a follower rank started by rank 0 of its host runs its command line and
+# gets its place in the job through this
+_RANK_ENV = "FO_SERVE_RANK"
 
 
 def get_args(argv=None):
@@ -101,7 +112,9 @@ def get_args(argv=None):
     p.add_argument("--pipeline_ticks", action="store_true",
                    help="double-buffered serving: enqueue tick N+1 before "
                         "fetching tick N's predictions (decisions run one "
-                        "224 ms tick late)")
+                        "224 ms tick late). A sharded engine (--tp, "
+                        "--coordinator) gathers its results at submit, so "
+                        "there it overlaps nothing yet")
     p.add_argument("--kv_quant", type=int, default=0, choices=[0, 8],
                    help="int8-quantize the per-session LLM KV cache "
                         "(per-token-per-head scales)")
@@ -146,11 +159,22 @@ def get_args(argv=None):
     p.add_argument("--resume_grace", type=float, default=300.0,
                    help="seconds a restored session waits for its client "
                         "before its slot is reclaimed")
-    # flags of the JAX server that wait for later work (see _WAITING)
-    p.add_argument("--coordinator", default=None)
-    for flag in ("tp", "num_hosts", "host_id"):
-        p.add_argument(f"--{flag}", type=int, default=None)
-    return p.parse_args(argv)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ways for the frozen LLM (--engine "
+                        "mode): k processes, one card each, the KV heads "
+                        "split over them")
+    # multi-host serving: one command per host, identical flags except
+    # --host_id. Host 0 owns the sockets; the other ranks replay its device
+    # steps in lockstep (runtime/multihost_serving.py). Session rows shard
+    # over hosts; --tp shards the LLM inside each host.
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of host 0: enables multi-host "
+                        "(env: FO_COORDINATOR/FO_NUM_HOSTS/FO_HOST_ID)")
+    p.add_argument("--num_hosts", type=int, default=1)
+    p.add_argument("--host_id", type=int, default=0)
+    args = p.parse_args(argv)
+    args.argv = list(sys.argv[1:] if argv is None else argv)   # the followers' too
+    return args
 
 
 class Server:
@@ -158,19 +182,35 @@ class Server:
         from ..models import audio_llm
         from ..utils.device import resolve_device
 
-        for flag, item in _WAITING:
-            if getattr(args, flag) is not None:
-                need = (", and it needs --engine" if flag in _ENGINE_ONLY
-                        and not args.engine else "")
-                raise SystemExit(f"--{flag} is not in the PyTorch port yet: "
-                                 f"it waits for {item}{need}")
-        if args.state_dir and not args.engine:
-            # the JAX server's reason, word for word
+        from ..parallel import multihost as mh
+
+        # the JAX server's refusals, word for word
+        multi = bool(args.coordinator or os.environ.get("FO_COORDINATOR"))
+        if args.tp > 1 and not args.engine:
+            raise SystemExit("--tp requires --engine (the per-session "
+                             "pipeline path is single-device)")
+        if multi and not args.engine:
+            raise SystemExit("--coordinator requires --engine (multi-host "
+                             "serving is the batched engine path)")
+        if args.state_dir and (not args.engine or multi):
             raise SystemExit("--state_dir requires --engine and is "
                              "single-host (the snapshot fetch/import are not "
                              "wired through the lockstep bundles at boot)")
         self.args = args
-        self.device = resolve_device(args.device)
+        self.follower = None   # (engine, tts_params) on a follower rank
+        self._local_ranks = []
+        self._job = mh.resolve_job(args.coordinator, args.num_hosts,
+                                   args.host_id) if multi else None
+        if args.tp > 1 and torch.device(args.device or "cuda").type == "cuda":
+            n = torch.cuda.device_count()
+            if n < args.tp:
+                raise SystemExit(f"--tp {args.tp} needs {args.tp} devices, "
+                                 f"have {n}")
+        self.ranked = args.tp > 1 or multi
+        # every rank draws the same seeded weights on its own device, then
+        # the engine cuts its shard
+        self.device = self._join_ranks() if self.ranked else \
+            resolve_device(args.device)
         preset = tiny_system() if args.preset == "tiny" else flagship_system()
         base_cfg = None
         if args.config:
@@ -261,16 +301,96 @@ class Server:
         # tiny weightless preset stays f32
         kv_dtype = (torch.float32 if args.preset == "tiny" and not args.model_path
                     else torch.bfloat16)
-        self.service = DuplexService(self.cfg, seed=args.seed,
-                                     tts_params=tts_params, params=params,
-                                     tokenizer=tokenizer, kv_dtype=kv_dtype,
-                                     device=self.device)
+        if self.ranked:
+            from ..parallel import multihost as mh
+            from ..runtime.engine import ServingEngine
+            from ..runtime.multihost_serving import PrimaryDriver
+
+            # the data axis spans hosts, the model axis stays inside a host
+            mesh = mh.make_global_mesh(("data", "model"), model_par=args.tp)
+            engine = ServingEngine(self.cfg, params, tokenizer, seed=args.seed,
+                                   kv_dtype=kv_dtype, device=self.device,
+                                   mesh=mesh)
+            if not mh.is_primary():
+                self.follower = (engine, tts_params)
+                return
+            self.service = DuplexService(
+                self.cfg, engine=PrimaryDriver(engine, tts_params),
+                seed=args.seed, tts_params=tts_params)
+        else:
+            self.service = DuplexService(self.cfg, seed=args.seed,
+                                         tts_params=tts_params, params=params,
+                                         tokenizer=tokenizer, kv_dtype=kv_dtype,
+                                         device=self.device)
         if tts_params is not None and not args.no_tts_warmup:
             n = self.service.warmup_synthesis()
             print(f"synthesis pool warmup: {n} programs", flush=True)
         self._svc_stop = threading.Event()
         self._ticker_thread = threading.Thread(target=self._ticker, daemon=True)
         self._ticker_thread.start()
+
+    def _join_ranks(self) -> torch.device:
+        """Join the serving job and return this rank's device. Rank 0 of a
+        host starts the host's other --tp ranks first (this module with
+        this command line, the rank in the environment). The job is the
+        --coordinator's, or else this host alone, met at a free localhost
+        port."""
+        import socket
+
+        from ..parallel import multihost as mh
+
+        args = self.args
+        place = json.loads(os.environ.get(_RANK_ENV, "{}"))
+        local_rank, coordinator = place.get("local_rank", 0), place.get("coordinator")
+        if self._job is None and coordinator is None:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+        if local_rank == 0 and args.tp > 1:
+            atexit.register(self._kill_local_ranks)
+            for r in range(1, args.tp):
+                env = dict(os.environ, **{_RANK_ENV: json.dumps(
+                    {"local_rank": r, "coordinator": coordinator})})
+                self._local_ranks.append(subprocess.Popen(
+                    [sys.executable, "-m", "freeze_omni_tpu_torch.bin.serve",
+                     *args.argv], env=env))
+        if not mh.maybe_initialize_from_args(args.coordinator, args.num_hosts,
+                                             args.host_id, args.tp, local_rank,
+                                             args.device):
+            mh.initialize(coordinator, 1, 0, args.tp, local_rank, args.device)
+        return mh.rank_device(args.device, local_rank)
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Leave the serving job (ranked serving): rank 0 stops its ticker
+        (no tick may race the stop broadcast) and broadcasts stop, which
+        ends every follower's replay loop; every rank meets the others at a
+        barrier and destroys the process group; then the ranks this process
+        started are waited for. Idempotent."""
+        if not self.ranked:
+            return
+        from ..parallel import multihost as mh
+
+        self.ranked = False
+        if self.follower is None and self.service is not None:
+            self.stop_ticker()
+            self.service.engine.stop()
+        mh.sync("serve-done")
+        mh.shutdown()
+        for p in self._local_ranks:
+            try:
+                p.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                pass
+        self._kill_local_ranks()
+
+    def _kill_local_ranks(self) -> None:
+        """Kill the ranks this process started that still run (at close,
+        or at exit after a failed start, whose followers would wait for
+        rank 0 forever)."""
+        for p in self._local_ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
     def _init_per_session(self, params, tts_params, tokenizer) -> None:
         """One DuplexPipeline for every session (the KV of each is a float
@@ -510,6 +630,14 @@ class Server:
     async def run(self):
         import websockets
 
+        if self.follower is not None:
+            from ..runtime.multihost_serving import run_follower
+
+            engine, tts = self.follower
+            print(f"follower host joined (host_id={self.args.host_id}); "
+                  f"replaying primary's steps", flush=True)
+            await asyncio.to_thread(run_follower, engine, tts)
+            return
         http_srv = self._start_http() if self.args.http_port else None
         restored = self.restore_snapshot()
         evictor = asyncio.get_running_loop().create_task(
@@ -578,7 +706,11 @@ def _jsonable(payload: dict) -> dict:
 
 
 def main(argv=None):
-    asyncio.run(Server(get_args(argv)).run())
+    server = Server(get_args(argv))
+    try:
+        asyncio.run(server.run())
+    finally:
+        server.close()
 
 
 if __name__ == "__main__":

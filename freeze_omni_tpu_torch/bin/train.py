@@ -26,7 +26,7 @@ Usage (the card by default; --device cpu runs on the host):
       --steps 20 --ckpt_dir /tmp/ckpt [--resume] [--batch 4] [--lr 1e-3] \\
       [--manifest train.tsv --epochs 2 --tokenizer /path/to/hf_tokenizer]
 The multi-host flags (--coordinator, --num_hosts, --host_id) exit: they
-wait for ROADMAP.md D9.
+wait for ROADMAP.md D9b (data-parallel and multi-host training).
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ def get_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--with_decoder", action="store_true", default=True)
-    # the JAX trainer's multi-host flags wait for ROADMAP D9
+    # the JAX trainer's multi-host flags wait for ROADMAP D9b
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num_hosts", type=int, default=None)
     p.add_argument("--host_id", type=int, default=None)
@@ -135,7 +135,7 @@ def run(args) -> dict:
     for flag in _WAITING:
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag} is not in the PyTorch port yet: it "
-                             f"waits for ROADMAP.md D9 (multi-GPU)")
+                             f"waits for ROADMAP.md D9b (multi-GPU training)")
     from .. import weights
     from ..config import flagship_system, tiny_system
     from ..training import data as data_mod

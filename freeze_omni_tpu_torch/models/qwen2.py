@@ -20,6 +20,16 @@ Unlike the JAX version, which threads the cache functionally, `forward` and
 keep the JAX signatures): the per-session KV pool is preallocated once.
 Training differentiates `train_forward` instead, which keeps no cache.
 Parameters keep the JAX layout: layer leaves are stacked [L, ...].
+
+Tensor parallel: a tree that parallel/mesh.shard_llm_params cut holds this
+rank's heads, FFN columns and vocabulary rows, and the key "mesh". Its
+forward runs num_heads / tp query and num_kv_heads / tp kv heads over a
+cache of its own kv heads, sums the row-parallel o and down projections
+with one all_reduce each over the mesh's model group, looks tokens up in
+its vocabulary rows (an all_reduce assembles the rows) and all-gathers the
+lm_head's columns, so every rank of a model group holds the same hidden
+states and logits. With no mesh, or one model rank, the code path is the
+single-card one and runs no collective.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch.nn.functional as F
 
 from ..config import LLMConfig
 from ..ops.attention import gqa_decode, prefill_quant
+from ..parallel import collectives
 from ..utils.device import resolve_device
 from . import lora as lora_mod
 from .layers import (NEG_INF, _uniform, embedding, layer_params, linear,
@@ -50,11 +61,12 @@ class KVCache(NamedTuple):
 
 def init_cache(cfg: LLMConfig, batch: int = 1, max_len: Optional[int] = None,
                dtype=torch.bfloat16, quant_bits: Optional[int] = None,
-               device=None) -> KVCache:
-    """Zeroed cache on `device` (None: the CUDA card)."""
+               device=None, tp: int = 1) -> KVCache:
+    """Zeroed cache on `device` (None: the CUDA card), of one rank's
+    num_kv_heads / tp kv heads."""
     device = resolve_device(device)
     s = max_len or cfg.max_kv_len
-    shape = (cfg.num_layers, batch, s, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, batch, s, cfg.num_kv_heads // tp, cfg.head_dim)
     length = torch.zeros(batch, dtype=torch.int32, device=device)
     if quant_bits is None:
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -186,19 +198,58 @@ def init_params(cfg: LLMConfig, gen: torch.Generator, dtype=torch.bfloat16,
     return params
 
 
-def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:
-    """Token embeddings; the per-row int8 table always yields bf16."""
-    p = params["embed"]
+def _mesh(params):
+    """The mesh of a tree that parallel/mesh.shard_llm_params cut, where its
+    model axis has more than one rank; else None."""
+    mesh = params.get("mesh")
+    return mesh if mesh is not None and mesh.model > 1 else None
+
+
+def model_ranks(params) -> int:
+    """The model ranks a tree's heads are split over (1 for a full tree);
+    a cache for it is made with init_cache(..., tp=model_ranks(params))."""
+    mesh = _mesh(params)
+    return 1 if mesh is None else mesh.model
+
+
+def _sum(mesh, y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel projection's partial sums, summed over the model
+    group (in place)."""
+    return y if mesh is None else collectives.all_reduce_(y, mesh.model_group)
+
+
+def _lookup(p, ids: torch.Tensor) -> torch.Tensor:
     if "w_q" in p:
         rows = p["w_q"][ids].float()
         return (rows * p["scale"][ids][..., None]).to(torch.bfloat16)
     return embedding(p, ids)
 
 
+def embed_tokens(params, ids: torch.Tensor) -> torch.Tensor:
+    """Token embeddings; the per-row int8 table always yields bf16. A
+    sharded table looks up the ids among its own rows, zeros the others and
+    sums over the model group: exact, each id has one owner."""
+    p = params["embed"]
+    mesh = _mesh(params)
+    if mesh is None:
+        return _lookup(p, ids)
+    rows = (p["w_q"] if "w_q" in p else p["w"]).shape[0]
+    local = ids - mesh.model_index * rows
+    mine = (local >= 0) & (local < rows)
+    emb = _lookup(p, torch.where(mine, local, torch.zeros_like(local)))
+    emb = torch.where(mine[..., None], emb, torch.zeros_like(emb))
+    return collectives.all_reduce_(emb, mesh.model_group)
+
+
 def logits(params, cfg: LLMConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """[..., vocab]; a sharded tree's column slices are gathered whole."""
     if cfg.tie_embeddings:
-        return torch.einsum("...d,vd->...v", hidden, params["embed"]["w"])
-    return linear(params["lm_head"], hidden)
+        y = torch.einsum("...d,vd->...v", hidden, params["embed"]["w"])
+    else:
+        y = linear(params["lm_head"], hidden)
+    mesh = _mesh(params)
+    return y if mesh is None else collectives.all_gather(y, mesh.model_group,
+                                                         dim=-1)
 
 
 def _gqa_attention(q, k_all, v_all, mask, rep: int):
@@ -233,20 +284,23 @@ def _proj(lp, lo, name: str, h: torch.Tensor, lora_scale: float) -> torch.Tensor
     return y
 
 
-def _layer(lp, lo, cfg: LLMConfig, x, cos, sin, attend, lora_scale: float):
+def _layer(lp, lo, cfg: LLMConfig, x, cos, sin, attend, lora_scale: float,
+           mesh=None):
     """One decoder layer; `attend(q, k, v)` -> [B, T, H*dk] is the
     attention over this layer's cache (serving) or over the fresh K/V
-    (training)."""
+    (training). Under a mesh it runs this rank's heads and sums the o and
+    down partial sums over the model group."""
     B, T, _ = x.shape
-    H, Hkv, dk = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp = 1 if mesh is None else mesh.model
+    H, Hkv, dk = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
     h = rms_norm(lp["ln1"], x, cfg.rms_eps)
     q = _apply_rot(_proj(lp, lo, "q", h, lora_scale).reshape(B, T, H, dk), cos, sin)
     k = _apply_rot(_proj(lp, lo, "k", h, lora_scale).reshape(B, T, Hkv, dk), cos, sin)
     v = _proj(lp, lo, "v", h, lora_scale).reshape(B, T, Hkv, dk)
-    x = x + _proj(lp, lo, "o", attend(q, k, v), lora_scale)
+    x = x + _sum(mesh, _proj(lp, lo, "o", attend(q, k, v), lora_scale))
     h2 = rms_norm(lp["ln2"], x, cfg.rms_eps)
     ffn = F.silu(_proj(lp, lo, "gate", h2, lora_scale)) * _proj(lp, lo, "up", h2, lora_scale)
-    return x + _proj(lp, lo, "down", ffn, lora_scale)
+    return x + _sum(mesh, _proj(lp, lo, "down", ffn, lora_scale))
 
 
 def forward(params, cfg: LLMConfig, embeds: torch.Tensor, mask: torch.Tensor,
@@ -265,9 +319,16 @@ def forward(params, cfg: LLMConfig, embeds: torch.Tensor, mask: torch.Tensor,
     adapter tree (models/lora.py) whose deltas lora_scale * (h @ A) @ B are
     added to the projections; the base weights stay frozen. The in-place
     cache writes make this path unfit for autograd: training runs
-    `train_forward`."""
+    `train_forward`. A sharded tree (see the module docstring) runs its own
+    heads over a cache of its own kv heads; an adapter is merged before
+    sharding, never passed with one."""
     B, T, D = embeds.shape
-    H, Hkv, dk = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mesh = _mesh(params)
+    if mesh is not None and lora is not None:
+        raise ValueError("a sharded LLM takes no LoRA tree: merge the adapter "
+                         "before sharding (models/lora.merge)")
+    tp = model_ranks(params)
+    H, Hkv, dk = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
     rep = H // Hkv
     S = cache.k.shape[2]
     dev = embeds.device
@@ -328,7 +389,7 @@ def forward(params, cfg: LLMConfig, embeds: torch.Tensor, mask: torch.Tensor,
     for i in range(cfg.num_layers):
         lo = None if lora is None else layer_params(lora, i)
         x = _layer(layer_params(params["layers"], i), lo, cfg, x, cos, sin,
-                   attend_cache(i), lora_scale)
+                   attend_cache(i), lora_scale, mesh)
     x = rms_norm(params["final_norm"], x, cfg.rms_eps)
     cache.length.add_(n_new.to(cache.length.dtype))
     return x, cache

@@ -129,9 +129,11 @@ class _Core:
             kv = self._role_kv.get(role)
             if kv is None:
                 ids = self._ids(self.chat.role_prompt_ids(role))[None]
+                # this rank's kv heads where the LLM is sharded
                 kv = qwen2.init_cache(self.acfg.llm, 1,
                                       dtype=self.user_prefix_embeds.dtype,
-                                      device=self.device)
+                                      device=self.device,
+                                      tp=qwen2.model_ranks(self.params["llm"]))
                 with torch.no_grad():
                     kv = audio_llm.prefill_tokens(self.params, self.acfg, ids, kv)
                 self._role_kv[role] = kv

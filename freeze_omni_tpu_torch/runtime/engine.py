@@ -25,7 +25,18 @@ shared pipeline._Core hands out per call (or one the caller passes).
 `restore_sessions` write and read every live session to a directory in the
 JAX package's snapshot format (serving checkpoint and resume).
 
-Left out of the port for now: mesh sharding and buffer donation.
+With a `mesh` (parallel/mesh.Mesh) the engine is one rank of a lockstep
+group of processes: the LLM is tensor-parallel over the mesh's 'model' axis
+(models/qwen2), the session rows shard over its 'data' axis
+(SessionStore.shard), the rest is replicated. Every rank must make the same
+engine calls in the same order (runtime/multihost_serving broadcasts them);
+host-side state (slot maps, pending chunks, KV-length mirror, sampling
+seeds) then evolves identically everywhere. Per-row results are gathered
+over 'data' so that every rank returns the same values (the JAX engine's
+replicate-then-fetch), and session blobs keep the single-card layout:
+export gathers the kv heads, import keeps this rank's.
+
+Left out of the port for now: buffer donation.
 """
 
 from __future__ import annotations
@@ -41,9 +52,11 @@ import torch
 
 from ..config import SystemConfig
 from ..models import audio_llm, qwen2
+from ..parallel import collectives
 from ..pipeline import _Core
 from ..utils.device import resolve_device
-from .session import SessionStore, row_from_leaves, row_leaves
+from .session import (SessionStore, all_heads, own_heads, row_from_leaves,
+                      row_leaves)
 
 SNAPSHOT_VERSION = 1
 
@@ -88,16 +101,20 @@ class PendingSegments:
     {sid: (tokens, hiddens, done)}. Deliver at most once; a second call
     returns {}."""
 
-    __slots__ = ("_engine", "_sids", "_rows", "_kept", "_arrays")
+    __slots__ = ("_engine", "_sids", "_rows", "_kept", "_arrays", "_ready")
 
-    def __init__(self, engine, sids, rows, kept_slots, arrays):
+    def __init__(self, engine, sids, rows, kept_slots, arrays, ready=None):
         self._engine = engine
         self._sids = sids
         self._rows = rows
         self._kept = kept_slots
         self._arrays = arrays
+        self._ready = ready   # a sharded engine's results, fetched at submit
 
     def deliver(self) -> Dict[str, Tuple[list, np.ndarray, bool]]:
+        ready, self._ready = self._ready, None
+        if ready is not None:
+            return ready
         arrays, self._arrays = self._arrays, None
         if arrays is None or not self._sids:
             return {}
@@ -108,19 +125,41 @@ class PendingSegments:
 class ServingEngine:
     def __init__(self, cfg: SystemConfig, params: Optional[dict] = None,
                  tokenizer=None, seed: int = 0, kv_dtype=torch.float32,
-                 device=None):
+                 device=None, mesh=None):
         """params: a tree already on `device` (weights.from_jax, or
         audio_llm.init_params); None draws random float weights from `seed`.
-        device=None means the CUDA card and raises without one."""
+        device=None means the CUDA card and raises without one. mesh: this
+        process's parallel/mesh.Mesh; the full LLM tree is cut to this
+        rank's shard here (after any LoRA merge or voice prompt, which work
+        on the full tree), and every rank must pass the same weights."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.core = _Core(cfg, params, tokenizer, seed, kv_dtype, self.device)
         if kv_dtype == torch.bfloat16:
             # serving in half precision: the frontend follows
             self.core.params = audio_llm.cast_frontend(self.core.params, kv_dtype)
-        self.store = SessionStore(cfg.audio_llm, cfg.serving.max_sessions,
+        self.mesh = mesh
+        max_sessions = cfg.serving.max_sessions
+        if mesh is not None:
+            from ..parallel.mesh import shard_llm_params
+
+            self.core.params = dict(self.core.params)   # the caller's tree stays
+            self.core.params["llm"] = shard_llm_params(
+                self.core.params["llm"], mesh, cfg.audio_llm.llm)
+            # session rows shard over 'data': round the capacity up to a
+            # multiple of it (the JAX engine's rule and message)
+            dp = mesh.data
+            if max_sessions % dp:
+                rounded = -(-max_sessions // dp) * dp
+                print(f"serving: max_sessions {max_sessions} -> {rounded} "
+                      f"(rounded up to a multiple of the data axis {dp})",
+                      file=sys.stderr)
+                max_sessions = rounded
+        self.store = SessionStore(cfg.audio_llm, max_sessions,
                                   kv_dtype, cfg.serving.kv_quant_bits,
                                   self.device)
+        if mesh is not None:
+            self.store.shard(mesh)
         # RLock: the callbacks fired inside a roll may re-enter the engine
         self._lock = threading.RLock()
         # pending chunk per (identity, slot): (fbank [1, T, 80], is_sl)
@@ -189,13 +228,25 @@ class ServingEngine:
             slot = self.store.slot_of(sid)
             role = self._slot_role.get(slot)
             prefix_len = int(self.store.prefix_len[slot])
-            row = self.store.gather_slot(slot)
-        if self.store.kv_quant_bits is not None:
-            row = row._replace(kv=qwen2.dequantize_cache(row.kv, torch.float32))
-        leaves = [(t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
-                  for t in row_leaves(row)]
+            row = self.store.gather_slot(slot) if self.store.owns(slot) else None
+        leaves = None
+        if row is not None:
+            if self.store.kv_quant_bits is not None:
+                row = row._replace(kv=qwen2.dequantize_cache(row.kv,
+                                                             torch.float32))
+            if self.mesh is not None:   # the canonical blob has every kv head
+                row = row._replace(kv=all_heads(row.kv, self.mesh))
+            leaves = [(t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+                      for t in row_leaves(row)]
+        if self.mesh is not None and self.mesh.data > 1:
+            # the holder's model group hands the row to every data index
+            src = self.mesh.rank_of(self.store.owner(slot), self.mesh.model_index)
+            leaves = collectives.broadcast_object(leaves, src,
+                                                  self.mesh.data_group)
+        template = self.store.row_template_canonical
         return {"version": SNAPSHOT_VERSION, "sid": sid, "role": role,
-                "prefix_len": prefix_len, "caches": row_from_leaves(row, leaves)}
+                "prefix_len": prefix_len,
+                "caches": row_from_leaves(template, leaves)}
 
     def _import_row(self, caches) -> audio_llm.SessionCaches:
         """An exported row (either package's, NamedTuples of arrays) in this
@@ -220,6 +271,8 @@ class ServingEngine:
             ).to(self.device, dt) for x, dt in zip(src, dtypes)])
         if bits is not None:
             row = row._replace(kv=qwen2.quantize_cache(row.kv, bits))
+        if self.mesh is not None:   # this rank's kv heads of the whole row
+            row = row._replace(kv=own_heads(row.kv, self.mesh))
         return row
 
     def import_session(self, sid: str, blob: dict,
@@ -235,7 +288,8 @@ class ServingEngine:
                 self.cfg.duplex.default_prompt
             if on_prediction is not None:
                 self._callbacks[slot] = on_prediction
-            self.store.scatter_slot(slot, row)
+            if self.store.owns(slot):
+                self.store.scatter_slot(slot, row)
             self.store.prefix_len[slot] = int(blob["prefix_len"])
             if self._len_host is not None:
                 self._len_host[slot] = int(row.kv.length[0])
@@ -246,8 +300,11 @@ class ServingEngine:
         per session (`leaf_j` in jax.tree.leaves order) and a sessions.json
         index, the JAX engine's format. With restore_sessions a restarted
         server keeps every dialog's KV context. Nothing may write the rows
-        meanwhile: stop the ticker first."""
-        os.makedirs(dirpath, exist_ok=True)
+        meanwhile: stop the ticker first. Under a mesh every rank takes part
+        in the exports and rank 0 writes the files."""
+        write = self.mesh is None or self.mesh.rank == 0
+        if write:
+            os.makedirs(dirpath, exist_ok=True)
         with self._lock:
             sids = list(self.store.active_sids)
         index = {}
@@ -257,13 +314,15 @@ class ServingEngine:
             except KeyError:   # closed since
                 continue
             fn = f"session-{i:04d}.npz"
-            np.savez(os.path.join(dirpath, fn),
-                     **{f"leaf_{j}": leaf for j, leaf in
-                        enumerate(row_leaves(blob["caches"]))})
+            if write:
+                np.savez(os.path.join(dirpath, fn),
+                         **{f"leaf_{j}": leaf for j, leaf in
+                            enumerate(row_leaves(blob["caches"]))})
             index[sid] = {"file": fn, "role": blob["role"],
                           "prefix_len": blob["prefix_len"]}
-        with open(os.path.join(dirpath, "sessions.json"), "w") as f:
-            json.dump({"version": SNAPSHOT_VERSION, "sessions": index}, f)
+        if write:
+            with open(os.path.join(dirpath, "sessions.json"), "w") as f:
+                json.dump({"version": SNAPSHOT_VERSION, "sessions": index}, f)
         return list(index)
 
     def restore_sessions(self, dirpath: str) -> List[str]:
@@ -346,7 +405,17 @@ class ServingEngine:
         return pending, chunks, active, is_sl
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        """The rows this process holds of a host [max_sessions, ...] array,
+        on the device (all of them without a mesh)."""
+        a = a[self.store.row0: self.store.row0 + self.store.local_rows]
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-row result of the rows this process holds, gathered whole
+        over the data axis (the JAX engine's _repl_out)."""
+        if self.mesh is None or self.mesh.data == 1:
+            return t
+        return collectives.all_gather(t, self.mesh.data_group, dim=0)
 
     def tick(self) -> Dict[str, Dict[int, dict]]:
         """Run the pending work of both identities and deliver the user
@@ -356,7 +425,9 @@ class ServingEngine:
     def tick_submit(self) -> PendingTick:
         """Enqueue the pending work of both identities (fused into one LLM
         pass when both have chunks) without waiting for the results. The
-        KV-length mirror advances exactly here."""
+        KV-length mirror advances exactly here. With 'data' > 1 the
+        probabilities are all-gathered here (through the host under gloo),
+        so a sharded engine's pipelined tick overlaps little."""
         try:
             return self._tick_submit()
         except torch.cuda.OutOfMemoryError as e:
@@ -383,6 +454,7 @@ class ServingEngine:
                     self._dev(system[3]), self._dev(system[2]),
                     self.core.user_prefix_embeds,
                     self.core.system_prefix_embeds, self.store.caches)
+                probs = self._all_rows(probs)
             self._advance_mirror(user[2], user[3], p_user,
                                  audio_llm.chunk_tokens(user[1].shape[1]))
             self._advance_mirror(system[2], system[3], p_system,
@@ -400,6 +472,7 @@ class ServingEngine:
                 probs, _ = audio_llm.recognize_step(
                     params, acfg, identity, self._dev(chunks), self._dev(is_sl),
                     prefix, self.store.caches, active=self._dev(active))
+                probs = self._all_rows(probs)
             self._advance_mirror(active, is_sl,
                                  p_user if identity == "user" else p_system,
                                  audio_llm.chunk_tokens(chunks.shape[1]))
@@ -441,8 +514,7 @@ class ServingEngine:
         cap = self.store.kv_capacity
         with self._lock:
             if self._len_host is None:  # first use: one authoritative read
-                self._len_host = self.store.caches.kv.length.cpu().numpy() \
-                    .astype(np.int32)
+                self._len_host = self.store.lengths()
             lengths = self._len_host.copy()
         need = lengths > cap - margin
         if not need.any():
@@ -499,11 +571,31 @@ class ServingEngine:
         with self._lock:
             return self.store.gather_kv_many(slots + [slots[0]] * (B - n))
 
+    def _held(self, pairs):
+        """The (sid, slot) pairs whose rows this process holds."""
+        return [(sid, slot) for sid, slot in pairs if self.store.owns(slot)]
+
+    def _all_results(self, mine: dict) -> dict:
+        """{sid: result} of the rows this process holds, merged over the
+        data axis (each data index answers for its own rows)."""
+        if self.mesh is None or self.mesh.data == 1:
+            return mine
+        merged = {}
+        for part in collectives.all_gather_object(mine, self.mesh.data_group):
+            merged.update(part)
+        return merged
+
     def respond(self, sid: str, responder) -> list:
         """Speak for one session on its slot's KV context: gather a copy of
         the row, run the DuplexResponder on it (text segments + StreamingTTS)
         and scatter back the KV its commit rule left, the context up to the
-        last sentence it yielded. Returns [(sentence_text, pcm16 | None)]."""
+        last sentence it yielded. Returns [(sentence_text, pcm16 | None)].
+        One process's responder: a sharded engine speaks through
+        respond_fast_many and continue_segments."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "respond() runs one process's DuplexResponder; a sharded "
+                "engine speaks through respond_fast_many and continue_segments")
         self._maybe_roll_kv()  # headroom before appending a response
         with self._lock:
             slot = self.store.slot_of(sid)
@@ -529,15 +621,31 @@ class ServingEngine:
         to the first PCM, with one host sync. The batch is padded to a power
         of two with copies of the first session's row; padded rows and rows
         whose session closed meanwhile are not written back. Returns
-        {sid: (pcm24k [1, 1, n], text_token_ids list)}."""
-        from . import fastpath
-
+        {sid: (pcm24k [1, 1, n], text_token_ids list)}. Under a mesh each
+        data index answers for the rows it holds, with the one generator
+        every rank draws."""
         if not sids:
             return {}
         self._maybe_roll_kv()  # headroom before appending a response
         pairs = self._resolve_slots(sids)
         if not pairs:
             return {}
+        gen = gen if gen is not None else self.core.next_key()
+        mine = self._held(pairs)
+        res = self._all_results(
+            self._first_responses(mine, tts_params, n_text, gen) if mine else {})
+        with self._lock:
+            if self._len_host is not None:
+                for sid, slot in pairs:
+                    if res[sid][3]:   # its row was written back
+                        self._len_host[slot] = res[sid][2]
+        return {sid: res[sid][:2] for sid, _ in pairs}
+
+    def _first_responses(self, pairs, tts_params, n_text: int, gen) -> dict:
+        """{sid: (pcm24k [1, 1, n], text ids, kv length, written back)} of
+        the fast path over `pairs` (rows this process holds)."""
+        from . import fastpath
+
         sids = [sid for sid, _ in pairs]
         kv = self._gather_bucket([slot for _, slot in pairs])
         B = int(kv.length.shape[0])
@@ -550,8 +658,7 @@ class ServingEngine:
         with torch.no_grad():
             pcm, toks, _, _, n_valid, kv = fastpath.first_response(
                 self.core.params, tts_params, cfg.audio_llm, cfg.tts.decoder,
-                cfg.tts.codec, ids, kv,
-                gen if gen is not None else self.core.next_key(), cfg.sampling,
+                cfg.tts.codec, ids, kv, gen, cfg.sampling,
                 n_text=n_text, n_codec=n_codec, top_k=cfg.tts.top_k,
                 eod_id=self.core.tokenizer.eod_id, global_tokens=gt,
                 penalty_window=cfg.tts.penalty_window_size,
@@ -561,10 +668,6 @@ class ServingEngine:
             self.store.scatter_kv_many(kept_slots, kv, rows=rows)
         pcm_np, toks_np = pcm.float().cpu().numpy(), toks.cpu().numpy()
         nv, len_np = n_valid.cpu().numpy(), kv.length.cpu().numpy()
-        with self._lock:
-            if self._len_host is not None:
-                for i, slot in zip(rows, kept_slots):
-                    self._len_host[slot] = len_np[i]
         up = cfg.tts.codec.upsample_rate
         out = {}
         for i, sid in enumerate(sids):
@@ -574,7 +677,8 @@ class ServingEngine:
             nvi = int(nv[i])
             emit_tokens = nvi if nvi < n_codec else n_codec - padding
             out[sid] = (pcm_np[i:i + 1, :, : emit_tokens * up],
-                        [int(t) for t in toks_np[i]])
+                        [int(t) for t in toks_np[i]], int(len_np[i]),
+                        i in rows)
         return out
 
     def continue_segments(self, last_tokens: Dict[str, int], n_steps: int = 16,
@@ -592,13 +696,45 @@ class ServingEngine:
                                  ) -> PendingSegments:
         """Enqueue the batched text continuation (padded to a power of two
         like respond_fast_many) and the KV scatter-back without fetching the
-        results; the handle's deliver() waits for them."""
+        results; the handle's deliver() waits for them. A sharded engine
+        fetches and gathers the results here, and advances its KV-length
+        mirror here, so that a rank which never delivers (a lockstep
+        follower) keeps the same mirror as the one that does; so under a
+        mesh nothing overlaps the continuation."""
         if not last_tokens:
             return PendingSegments(self, [], [], [], None)
         self._maybe_roll_kv()
         pairs = self._resolve_slots(list(last_tokens))
         if not pairs:
             return PendingSegments(self, [], [], [], None)
+        gen = gen if gen is not None else self.core.next_key()
+        if self.mesh is None:
+            sids, rows, kept_slots, arrays = self._segments(pairs, last_tokens,
+                                                            n_steps, gen)
+            return PendingSegments(self, sids, rows, kept_slots, arrays)
+        mine = self._held(pairs)
+        got = {}
+        if mine:
+            sids, rows, kept_slots, arrays = self._segments(mine, last_tokens,
+                                                            n_steps, gen)
+            toks, hiddens, done, length = [a.cpu() for a in arrays]
+            segs = self._segments_out(sids, toks.numpy(),
+                                      hiddens.float().numpy(), done.numpy())
+            got = {sid: (segs[sid], int(length[i]), i in rows)
+                   for i, sid in enumerate(sids)}
+        got = self._all_results(got)
+        with self._lock:
+            if self._len_host is not None:
+                for sid, slot in pairs:
+                    if got[sid][2]:
+                        self._len_host[slot] = got[sid][1]
+        return PendingSegments(self, [], [], [], None,
+                               ready={sid: got[sid][0] for sid, _ in pairs})
+
+    def _segments(self, pairs, last_tokens, n_steps: int, gen):
+        """generate_segment over `pairs` (rows this process holds), the
+        advanced rows scattered back: (sids, rows kept, their slots,
+        (tokens, hiddens, done, kv length) on the device)."""
         sids = [sid for sid, _ in pairs]
         kv = self._gather_bucket([slot for _, slot in pairs])
         B = int(kv.length.shape[0])
@@ -607,25 +743,28 @@ class ServingEngine:
                                dtype=torch.int32, device=self.device)
         with torch.no_grad():
             toks, hiddens, done, kv = audio_llm.generate_segment(
-                self.core.params, self.cfg.audio_llm, tok0, kv,
-                gen if gen is not None else self.core.next_key(),
-                self.cfg.sampling, n_steps=n_steps, eod_id=self.core.tokenizer.eod_id)
+                self.core.params, self.cfg.audio_llm, tok0, kv, gen,
+                self.cfg.sampling, n_steps=n_steps,
+                eod_id=self.core.tokenizer.eod_id)
         with self._lock:
             rows, kept_slots = self._still_current(pairs)
             self.store.scatter_kv_many(kept_slots, kv, rows=rows)
-        return PendingSegments(self, sids, rows, kept_slots,
-                               (toks, hiddens, done, kv.length))
+        return sids, rows, kept_slots, (toks, hiddens, done, kv.length)
 
     def _deliver_segments(self, sids, rows, kept_slots, arrays):
         toks, hiddens, done, length = arrays
         toks_np, done_np = toks.cpu().numpy(), done.cpu().numpy()
         hid_np = hiddens.float().cpu().numpy()
         len_np = length.cpu().numpy()
-        eod = self.core.tokenizer.eod_id
         with self._lock:
             if self._len_host is not None:
                 for i, slot in zip(rows, kept_slots):
                     self._len_host[slot] = len_np[i]
+        return self._segments_out(sids, toks_np, hid_np, done_np)
+
+    def _segments_out(self, sids, toks_np, hid_np, done_np) -> dict:
+        """{sid: (tokens up to and with eod, their hiddens, done)}."""
+        eod = self.core.tokenizer.eod_id
         out = {}
         for i, sid in enumerate(sids):
             seg = [int(t) for t in toks_np[i]]

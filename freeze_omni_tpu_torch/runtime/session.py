@@ -6,6 +6,12 @@ along a leading session axis in ONE preallocated `SessionCaches`, and a slot
 allocator maps session ids to rows. Where the JAX store rebuilds the pytree
 functionally, this one writes rows in place.
 
+Under a ('data', 'model') mesh (`shard`) a process holds only its data
+index's session rows, and of the LLM KV only its model index's kv heads.
+Slots stay global (every rank allocates the same slots in the same order);
+a rank reads and writes the rows it holds (`owns`), and `lengths` gathers
+the KV lengths of every row.
+
 `row_leaves` / `row_from_leaves` flatten a `SessionCaches` row in the leaf
 order of `jax.tree.leaves` (NamedTuple fields in declaration order, None
 fields skipped), the order of a serving snapshot's files, so a snapshot
@@ -23,6 +29,8 @@ from ..config import AudioLLMConfig
 from ..models import adapter as adapter_mod
 from ..models import audio_llm, qwen2
 from ..models import encoder as encoder_mod
+from ..parallel import collectives
+from ..parallel.mesh import KV_CACHE_AXES, cut
 
 _ENC_AXES = encoder_mod.EncoderState(k_cache=1, v_cache=1, valid=0,
                                      pe_index=0, ffn_cache=1)
@@ -58,6 +66,25 @@ def row_from_leaves(template, leaves):
     return rec(template)
 
 
+def own_heads(kv: qwen2.KVCache, mesh) -> qwen2.KVCache:
+    """This model index's kv heads (and their scales) of a cache that holds
+    every head (parallel/mesh.KV_CACHE_AXES)."""
+    heads = KV_CACHE_AXES["model"]
+    return kv._replace(**{
+        name: cut(getattr(kv, name), heads, mesh.model_index, mesh.model)
+        for name in ("k", "v", "k_scale", "v_scale")
+        if getattr(kv, name) is not None})
+
+
+def all_heads(kv: qwen2.KVCache, mesh) -> qwen2.KVCache:
+    """Every kv head of a float cache whose heads the model group splits
+    (a collective of that group): the inverse of own_heads."""
+    heads = KV_CACHE_AXES["model"]
+    return kv._replace(**{
+        name: collectives.all_gather(getattr(kv, name), mesh.model_group,
+                                     dim=heads) for name in ("k", "v")})
+
+
 def map_rows(fn, axes, *trees):
     """Apply fn(batch_axis, *leaves) over matching leaves of NamedTuple trees
     (None leaves and None axes stay None) and rebuild the structure."""
@@ -84,6 +111,49 @@ class SessionStore:
         self._slots: Dict[str, int] = {}
         # pinned role-prefill length per slot (the sliding-KV "sink" prefix)
         self.prefix_len = np.zeros((max_sessions,), np.int32)
+        # the rows this process holds: global slots [row0, row0 + local_rows)
+        self.mesh = None
+        self.row0 = 0
+        self.local_rows = max_sessions
+
+    def shard(self, mesh) -> None:
+        """Keep this process's part of the caches on a ('data', 'model')
+        mesh (counterpart of the JAX SessionStore.shard): its data index's
+        session rows of every leaf and, of the LLM KV, its model index's kv
+        heads and their scales (parallel/mesh.KV_CACHE_AXES); kv.length
+        keeps its rows, whole over 'model'. max_sessions must split over
+        the data axis (the engine rounds it up)."""
+        if self.max_sessions % mesh.data:
+            raise ValueError(f"max_sessions {self.max_sessions} does not "
+                             f"split over the data axis {mesh.data}")
+        di, dn = mesh.data_index, mesh.data
+        rows = map_rows(lambda ax, t: cut(t, ax, di, dn), BATCH_AXES,
+                        self.caches)
+        self.caches = rows._replace(kv=own_heads(rows.kv, mesh))
+        self.mesh = mesh
+        self.local_rows = self.max_sessions // dn
+        self.row0 = di * self.local_rows
+
+    def owns(self, slot: int) -> bool:
+        """Whether this process holds `slot`'s row."""
+        return self.row0 <= slot < self.row0 + self.local_rows
+
+    def owner(self, slot: int) -> int:
+        """The data index that holds `slot`'s row."""
+        return slot // self.local_rows
+
+    def _local(self, slots) -> torch.Tensor:
+        """Local row indices of held slots, on the caches' device."""
+        return torch.as_tensor([s - self.row0 for s in slots], dtype=torch.long,
+                               device=self.caches.kv.k.device)
+
+    def lengths(self) -> np.ndarray:
+        """kv.length of every slot as host int32 [max_sessions]; under a
+        mesh with several data indices a collective every rank joins."""
+        own = self.caches.kv.length
+        if self.mesh is not None:
+            own = collectives.all_gather(own, self.mesh.data_group)
+        return own.cpu().numpy().astype(np.int32)
 
     def alloc(self, sid: str, role_kv: Optional[qwen2.KVCache] = None,
               reset: bool = True) -> int:
@@ -122,14 +192,18 @@ class SessionStore:
         return list(self._slots)
 
     def reset_slot(self, slot: int, role_kv: Optional[qwen2.KVCache] = None) -> None:
-        """Zero the slot's row in every cache; seed its KV from role_kv."""
-        map_rows(lambda ax, t: t.narrow(ax, slot, 1).zero_(), BATCH_AXES,
+        """Zero the slot's row in every cache; seed its KV from role_kv (a
+        prefill at this process's kv heads). Only the holder writes the row;
+        every process records the prefix length."""
+        self.prefix_len[slot] = 0 if role_kv is None else int(role_kv.length[0])
+        if not self.owns(slot):
+            return
+        r = slot - self.row0
+        map_rows(lambda ax, t: t.narrow(ax, r, 1).zero_(), BATCH_AXES,
                  self.caches)
-        self.prefix_len[slot] = 0
         if role_kv is not None:
-            map_rows(lambda ax, full, row: full.narrow(ax, slot, 1).copy_(row),
+            map_rows(lambda ax, full, row: full.narrow(ax, r, 1).copy_(row),
                      _KV_AXES, self.caches.kv, role_kv)
-            self.prefix_len[slot] = int(role_kv.length[0])
 
     @property
     def row_template_canonical(self) -> audio_llm.SessionCaches:
@@ -142,6 +216,8 @@ class SessionStore:
                                       None, "cpu")
 
     def kv_length(self, slot: int) -> int:
+        if self.mesh is not None:
+            return int(self.lengths()[slot])
         return int(self.caches.kv.length[slot])
 
     @property
@@ -150,13 +226,15 @@ class SessionStore:
         return int(self.caches.kv.k.shape[2])
 
     def gather_slot(self, slot: int) -> audio_llm.SessionCaches:
-        """A batch-1 copy of one session's caches."""
-        return map_rows(lambda ax, t: t.narrow(ax, slot, 1).clone(),
+        """A batch-1 copy of one held session's caches."""
+        r = slot - self.row0
+        return map_rows(lambda ax, t: t.narrow(ax, r, 1).clone(),
                         BATCH_AXES, self.caches)
 
     def scatter_slot(self, slot: int, row: audio_llm.SessionCaches) -> None:
-        """Write a batch-1 caches tree back into the slot, in place."""
-        map_rows(lambda ax, full, r: full.narrow(ax, slot, 1).copy_(r),
+        """Write a batch-1 caches tree back into a held slot, in place."""
+        r = slot - self.row0
+        map_rows(lambda ax, full, new: full.narrow(ax, r, 1).copy_(new),
                  BATCH_AXES, self.caches, row)
 
     def gather_kv(self, slot: int) -> qwen2.KVCache:
@@ -168,10 +246,10 @@ class SessionStore:
         self.scatter_kv_many([slot], kv)
 
     def gather_kv_many(self, slots: List[int]) -> qwen2.KVCache:
-        """A copy of several sessions' LLM KV rows as one batch-B KVCache
-        (batched response generation over the sessions that speak)."""
+        """A copy of several held sessions' LLM KV rows as one batch-B
+        KVCache (batched response generation over the sessions that speak)."""
         kv = self.caches.kv
-        idx = torch.as_tensor(list(slots), dtype=torch.long, device=kv.k.device)
+        idx = self._local(slots)
         return map_rows(lambda ax, t: t.index_select(ax, idx),
                         qwen2.cache_axes(kv), kv)
 
@@ -184,7 +262,7 @@ class SessionStore:
         if not slots:
             return
         dev = self.caches.kv.k.device
-        dst = torch.as_tensor(list(slots), dtype=torch.long, device=dev)
+        dst = self._local(slots)
         src = torch.as_tensor(list(rows if rows is not None else range(len(slots))),
                               dtype=torch.long, device=dev)
         map_rows(lambda ax, full, new: full.index_copy_(ax, dst,

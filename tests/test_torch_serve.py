@@ -197,27 +197,99 @@ def test_checkpoint_flags_load(kind, tmp_path):
                                   want["audiollm"]["llm"]["lm_head"]["w"])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--engine", "--tp", "2"], "D9"),
-    (["--engine", "--coordinator", "h:1"], "D9"),
-    (["--engine", "--num_hosts", "2"], "D9"),
-    (["--engine", "--host_id", "1"], "D9"),
+@pytest.mark.parametrize("argv,error,message", [
+    (["--tp", "2"], SystemExit, "^--tp requires --engine"),
+    (["--coordinator", "h:1"], SystemExit, "^--coordinator requires --engine"),
+    (["--engine", "--coordinator", "h:1", "--num_hosts", "1"], ValueError,
+     "^--coordinator given but --num_hosts < 2$"),
+    (["--engine", "--coordinator", "h:1", "--num_hosts", "2", "--state_dir",
+      "s"], SystemExit, "^--state_dir requires --engine and is single-host"),
 ])
-def test_waiting_flags_exit_naming_their_roadmap_item(argv, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
+def test_waiting_flags_exit_naming_their_roadmap_item(argv, error, message):
+    """The multi-GPU flags are served now (ROADMAP D9); what the JAX server
+    refuses, the port refuses with the JAX server's words."""
+    with pytest.raises(error, match=message):
         serve.Server(serve.get_args(["--preset", "tiny", "--device", "cpu", *argv]))
 
 
 @pytest.mark.parametrize("argv,reason", [
-    (["--tp", "2"], "ROADMAP.md D9 .*, and it needs --engine"),
-    (["--coordinator", "h:1"], "ROADMAP.md D9 .*, and it needs --engine"),
+    (["--engine", "--tp", "2"], "^--tp 2 needs 2 devices, have 1$"),
+    (["--engine", "--tp", "4"], "^--tp 4 needs 4 devices, have 1$"),
     (["--state_dir", "s"], "^--state_dir requires --engine and is single-host"),
 ])
-def test_engine_only_flags_exit_without_engine(argv, reason):
-    """As in the JAX server, these need --engine; the multi-GPU ones also
-    wait for their ROADMAP item, and --state_dir gives the JAX reason."""
+def test_engine_only_flags_exit_without_engine(argv, reason, monkeypatch):
+    """--state_dir needs --engine, with the JAX reason; --tp k on the card
+    needs k cards (one rank a card: NCCL refuses two ranks on one device)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit, match=reason):
-        serve.Server(serve.get_args(["--preset", "tiny", "--device", "cpu", *argv]))
+        serve.Server(serve.get_args(["--preset", "tiny", *argv]))
+
+
+def test_tp2_server_ticks_through_its_follower(monkeypatch):
+    """serve --engine --tp 2 --device cpu: this process is rank 0 and starts
+    one follower process; a tick of the service runs on both ranks (the
+    tiny LLM's two kv heads split one a rank) and gives predictions."""
+    from freeze_omni_tpu_torch.runtime.multihost_serving import PrimaryDriver
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")   # the follower shares the cores
+
+    server = serve.Server(serve.get_args(
+        ["--preset", "tiny", "--engine", "--device", "cpu", "--tp", "2"]))
+    try:
+        server.stop_ticker()
+        drv = server.service.engine
+        assert isinstance(drv, PrimaryDriver)
+        assert drv.engine.mesh.shape == (1, 2)
+        assert drv.store.caches.kv.k.shape[3] == 1
+        drv.open_session("t")
+        drv.submit_chunk("t", "user", np.random.RandomState(0).randn(
+            1, 32, 80).astype(np.float32), True)
+        pred = drv.tick()["user"][drv.store.slot_of("t")]
+        assert 0.0 <= pred["state_1"] <= 1.0 and 0.0 <= pred["state_2"] <= 1.0
+        follower = server._local_ranks[0]
+        assert follower.poll() is None   # still replaying
+    finally:
+        server.close()
+    assert follower.wait(timeout=60) == 0
+
+
+def test_two_host_server_ticks_through_its_follower_host():
+    """serve --engine --coordinator --num_hosts 2: host 1 is a second
+    command (here a subprocess), host 0 this process; the session rows
+    split over the hosts (data 2) and a tick runs on both."""
+    import subprocess
+    import sys
+
+    from freeze_omni_tpu_torch.runtime.multihost_serving import PrimaryDriver
+
+    flags = ["--preset", "tiny", "--engine", "--device", "cpu", "--coordinator",
+             f"127.0.0.1:{_free_port()}", "--num_hosts", "2"]
+    host1 = subprocess.Popen(
+        [sys.executable, "-m", "freeze_omni_tpu_torch.bin.serve", *flags,
+         "--host_id", "1"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    try:
+        server = serve.Server(serve.get_args([*flags, "--host_id", "0"]))
+        try:
+            server.stop_ticker()
+            drv = server.service.engine
+            assert isinstance(drv, PrimaryDriver)
+            assert drv.engine.mesh.shape == (2, 1) and drv.store.local_rows == 4
+            slots = [drv.open_session(f"h{i}") for i in range(5)]   # both hosts' rows
+            for i in range(5):
+                drv.submit_chunk(f"h{i}", "user", np.random.RandomState(i).randn(
+                    1, 32, 80).astype(np.float32), True)
+            preds = drv.tick()["user"]
+            assert sorted(preds) == sorted(slots) and max(slots) >= 4
+        finally:
+            server.close()
+        out, _ = host1.communicate(timeout=60)
+    finally:
+        if host1.poll() is None:
+            host1.kill()
+            host1.communicate()
+    assert host1.returncode == 0, out[-3000:]
+    assert "follower host joined (host_id=1)" in out
 
 
 def test_per_session_server_over_websocket():

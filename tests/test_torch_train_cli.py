@@ -97,7 +97,7 @@ def test_lora_stage_writes_an_adapter_both_packages_read(tmp_path):
 @pytest.mark.parametrize("flag", [["--coordinator", "127.0.0.1:1234"],
                                   ["--num_hosts", "2"], ["--host_id", "1"]])
 def test_multi_host_flags_wait_for_d9(flag):
-    with pytest.raises(SystemExit, match="D9"):
+    with pytest.raises(SystemExit, match="ROADMAP.md D9b "):
         train("--stage", "state", "--steps", "1", *flag)
 
 
