@@ -7,7 +7,8 @@ Runs the port's serving paths on the card with no fallback anywhere: the
 duplex dialog-state tick and the batched spoken response (text decode ->
 speech decoder -> codec -> PCM) in int8, and the int4 configuration served
 through bin/serve.py's Server and the DuplexService; then the native host
-frontend and the training path. Any failing phase raises and the script
+frontend, the training path, serving across ranks and training across
+ranks with the ring-attention and pipelined forwards. Any failing phase raises and the script
 exits nonzero without printing a result. Phases:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
@@ -242,7 +243,7 @@ exits nonzero without printing a result. Phases:
    every gradient within 1e-3 of its leaf's largest entry, parameters after
    the step within 1e-5 where the gradient is resolved (above 1e-3 of the
    tree's largest) and within 2 lr elsewhere (the first Adam step moves an
-   entry by about lr * sign(g)); (b) bin/train.main --preset flagship
+   entry by about lr * sign(g)); (b) bin/train.run --preset flagship
    --stage state --steps 6 --batch 2 --save_every 3 (full width and
    depth, the f32 LLM), then 3 steps and --resume for 3 more: the resumed
    losses within 1e-5 relative of the uninterrupted ones; s/step, the peak
@@ -273,7 +274,38 @@ exits nonzero without printing a result. Phases:
    N = 8 (K1 with the int8 lm_head) and K2 at T = 29 and T = 1, at the
    shapes one rank of tp = 2 and of tp = 4 runs, each beside its bound, its
    plain version and the library call (phase 8's timers). Prints its wall
-   time.
+   time;
+16. multi-GPU training and the long-sequence forwards (bin/train.py's
+   data-parallel mode, parallel/ring_attention.py, parallel/
+   pipeline_parallel.py), ranks as in phase 15: (a) bin/train.run over two
+   ranks joined as two "hosts" (2 rows each of a batch of 4) at Qwen2-7B
+   widths, the LLM cut to 20 layers where the two ranks' f32 trees share
+   one card (28 with a card each), --stage state and all, AdamW at lr
+   5e-6, against one rank on the whole batch (in this process: run()
+   starts no process), after one step and after four: every loss within
+   1e-5 relative, the parameters within phase 14's rule (1e-5 where the
+   gradient is resolved, 2 lr elsewhere), after one step the gradients
+   within phase 14's rule, the ranks' checksums equal, and a resume on both ranks from
+   the four-step run's step-3 checkpoint equal to its step 4; each rank's
+   s/step and peak printed; no kernel may launch; (b) where the host has two or more cards,
+   `python -m freeze_omni_tpu_torch.bin.train --preset flagship --stage
+   state` at full depth over them, one rank a card (else one line says why
+   not); (c) sp_forward at Qwen2-7B width and depth, B = 1, T = 4096, bf16
+   embeddings from the tree's table, int8 then int4 weights, at R = 4 (a
+   ('seq',) mesh) and R = 2 (data index 0 of a (data 2, seq 2) mesh; data
+   index 1 waits), against the unsharded causal forward
+   (qwen2.train_forward) on one rank: every hidden row within 5e-2 of its
+   largest entry; each rank launches K1 (int8) or K5's tile path (int4)
+   exactly 7 x 28 times a forward and nothing else; each rank's peak
+   memory against the unsharded run's, the time of a forward; (d)
+   pp_forward over 4 stages (7 layers a rank, each rank holding only its
+   stage_tree) with 4 microbatches of b = 1, T = 512, same weights and
+   checks, 7 x 7 x 4 launches a rank, each rank's resident and peak memory;
+   (e) K1 and K5's tile path on one layer's 7 projections at N = 2048 (a
+   ring rank at R = 2) and N = 512 (a microbatch), each beside its bound,
+   its plain version, the library call and a dense bf16 matmul (phase 3
+   holds both kernels to their plain versions at N = 512, 1024 and 2048).
+   Prints its wall time.
 
 The last lines: the nvidia-smi line, one {"kernels": [...]} JSON line and
 the device JSON line.
@@ -579,6 +611,9 @@ TILE_NS = (17, 89, 232, 233, 1856)   # the tile path's N in phase 3
 # rows, the role prefill's 89 tokens, a tick of 8 sessions' 29 tokens at
 # data 1 and of 4 at data 2
 SHARD_NS = (1, 4, 8, 89, 116, 232)
+# N of phase 16's projections: a pipeline microbatch (b = 1 of 512 tokens)
+# and a ring rank's slice of 4096 tokens at R = 4 and R = 2
+SP_PP_ROWS = (512, 1024, 2048)
 
 
 def shard_shapes():
@@ -771,6 +806,7 @@ def phase_kernel_parity():
     k1_cases += [(3584, 152064, N) for N in (1, 8, 89)]   # the int8 lm_head
     k1_cases += [(3776, 520, N) for N in (17, 232)]    # ragged O
     k1_cases += [(K, O, N) for (_, K, O) in shard_shapes() for N in SHARD_NS]
+    k1_cases += [(K, O, N) for (K, O) in K1_SHAPES for N in SP_PP_ROWS]
     for (K, O, N) in k1_cases:
         x, w_q, scale = k1_inputs(N, K, O, seed=N + K + O)
         w_q[:16, :64] = -128   # the ends of int8, -128 beyond the quantizer's
@@ -803,6 +839,7 @@ def phase_kernel_parity():
     # the shard shapes (o at tp = 4: K = 896, 14 groups)
     cases += [(K, O, N, 64) for (_, K, O) in shard_shapes()
               for N in sorted({*SHARD_NS, qm.SMALL_N})]
+    cases += [(K, O, N, 64) for (K, O) in K1_SHAPES for N in SP_PP_ROWS]
     for (K, O, N, group) in cases:
         for dtype, dtol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             x, w_q4, scale4 = k5_inputs(N, K, O, group, dtype, seed=N + K + O)
@@ -1598,9 +1635,9 @@ def torch_matmul(x, w):
     return torch.matmul(x, w)
 
 
-def k1_time(x, w_q, scale):
-    """K1's kernel (eager and device time), plain, library and dense bf16
-    times and its bound on x @ w."""
+def k1_time(x, w_q, scale, lib_iters=50):
+    """K1's kernel (eager and device time), plain, library (`lib_iters`
+    timed calls) and dense bf16 times and its bound on x @ w."""
     import torch
 
     from freeze_omni_tpu_torch.bin.timing import bound, cuda_time_ms, graph_time_ms
@@ -1614,7 +1651,8 @@ def k1_time(x, w_q, scale):
          "device_ms": graph_time_ms(lambda: qm.quant_matmul(x, w_q, scale)),
          "plain_ms": cuda_time_ms(lambda: qm.quant_matmul_reference(x, w_q, scale),
                                   iters=10),
-         "library_ms": cuda_time_ms(lambda: torch._weight_int8pack_mm(x, w_t, s_b)),
+         "library_ms": cuda_time_ms(lambda: torch._weight_int8pack_mm(x, w_t, s_b),
+                                    iters=lib_iters, warmup=min(5, lib_iters)),
          "bytes": K * O + 4 * O + 2 * N * K + 2 * N * O, "ops": 2 * N * K * O,
          "splits": qm.tile_plan(N, K, O)[2]}
     del w_t
@@ -1624,7 +1662,7 @@ def k1_time(x, w_q, scale):
     return r
 
 
-def k1_layer(layers, lm_head, N, g):
+def k1_layer(layers, lm_head, N, g, lib_iters=50):
     """One layer's seven projections (and the lm_head when given) at N rows."""
     import torch
 
@@ -1639,7 +1677,7 @@ def k1_layer(layers, lm_head, N, g):
     for name, w_q, scale in mats:
         K, O = w_q.shape
         x = torch.randn((N, K), generator=g, device="cuda").to(torch.bfloat16)
-        r = k1_time(x, w_q, scale)
+        r = k1_time(x, w_q, scale, lib_iters)
         b_ms, b_by = bound(r["bytes"], r["ops"])
         log(f"[time] K1 {name} N={N} K={K} O={O} splits={r['splits']}: kernel "
             f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), bound {b_ms:.4f} ms "
@@ -3737,15 +3775,15 @@ def phase_train_parity(smi):
 
 
 def train_run(argv):
-    """bin/train.main on the card; returns its output with the peak device
-    memory."""
+    """bin/train.run on the card, in this process (run() starts none);
+    returns its output with the peak device memory."""
     import torch
 
     from freeze_omni_tpu_torch.bin import train
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    out = train.main(argv)
+    out = train.run(train.get_args(argv))
     torch.cuda.synchronize()
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
@@ -4037,7 +4075,7 @@ def run_ranks(jobs, label):
         for i in range(len(jobs)):
             with open(os.path.join(tmp, f"rank{i}.log")) as f:
                 log(f"[tp] {label} rank {i} log (tail):\n{f.read()[-6000:]}")
-        raise AssertionError(f"phase 15 {label}: {fault}")
+        raise AssertionError(f"{label}: {fault}")
     results = []
     for _, _, job in procs:
         with open(job["out"]) as f:
@@ -4048,7 +4086,8 @@ def run_ranks(jobs, label):
 
 
 def tp_rank(job_path):
-    """A rank of phase 15: join the job, run its mode, write its result."""
+    """A rank of phases 15 and 16: join the job, run its mode, write its
+    result."""
     import torch
     import torch.distributed as dist
 
@@ -4069,16 +4108,19 @@ def tp_rank(job_path):
     else:                  # one host, local ranks: the serve --tp layout
         dev = mh.initialize(job["coordinator"], 1, 0, job["local_ranks"],
                             job["local_rank"], TP_DEVICE)
-    mesh = mh.make_global_mesh(("data", "model"), model_par=job["model"])
     torch.cuda.reset_peak_memory_stats()
-    out = {"rank": mesh.rank, "backend": dist.get_backend(), "device": str(dev),
-           "mesh": list(mesh.shape)}
-    out.update({"parity": tp_rank_parity, "serve": tp_rank_serve}[job["mode"]](
-        job, mesh, dev))
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(), "device": str(dev)}
+    if job["mode"] in ("dp", "forward"):   # phase 16 makes its own meshes
+        out.update({"dp": dp_rank, "forward": forward_rank}[job["mode"]](job, dev))
+    else:
+        mesh = mh.make_global_mesh(("data", "model"), model_par=job["model"])
+        out["mesh"] = list(mesh.shape)
+        out.update({"parity": tp_rank_parity, "serve": tp_rank_serve}[job["mode"]](
+            job, mesh, dev))
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     with open(job["out"], "w") as f:
         json.dump(out, f)
-    mh.sync("phase 15")
+    mh.sync("rank done")
     mh.shutdown()
     return 0
 
@@ -4508,6 +4550,460 @@ def phase_tp_kernel_times(kernels, smi):
             entry["tp_shard_shapes"] = out[key]
 
 
+# ---------------------------------------------------------------------------
+# phase 16: multi-GPU training (bin/train.py data-parallel, ring attention,
+# the GPipe pipeline)
+# ---------------------------------------------------------------------------
+
+DP_BATCH = 4
+DP_STEPS = 4
+DP_LOSS_RTOL = 1e-5      # every DP loss against one rank's, relative
+# 16a's AdamW lr. DP and one rank sum a step's gradients in different
+# orders, so an entry whose gradient is rounding noise takes an Adam step
+# of up to lr either way in each run: after one step the runs' parameters
+# part by 0.85-1.14 lr (measured at lr 1e-3, 1e-4 and 1e-5 on an H100
+# 80GB HBM3 at 700 W), and an entry parted so keeps that gap when its
+# gradient is resolved later. At lr = 1e-5 / 2 that one-step bound, 2 lr,
+# is phase 14's 1e-5 itself, so the rule holds after four steps too.
+DP_LR = 5e-6
+DP_SHARED_DEPTH = 20     # LLM layers when two ranks' f32 trees share one card
+RING_T = 4096            # 16c: B = 1 sequences of 4096 tokens
+RING_WAYS = (2, 4)
+PIPE_STAGES = 4          # 16d: 7 layers a stage
+PIPE_MICRO = 4           # microbatches of b = 1
+PIPE_T = 512
+SP_PP_NS = (2048, 512)   # 16e: a ring rank's rows at R = 2, a microbatch's
+FORWARD_SEED = 16
+SHIFT_ROUNDS = 10        # ring rotations timed alone
+
+
+def dp_argv(stage, steps, *extra, lr=DP_LR):
+    return ["--preset", "flagship", "--stage", stage, "--batch", str(DP_BATCH),
+            "--steps", str(steps), "--seed", "0", "--lr", str(lr), *extra]
+
+
+def dp_system(depth):
+    """flagship_system() with the LLM cut to `depth` layers."""
+    import dataclasses
+
+    from freeze_omni_tpu_torch.config import flagship_system
+
+    cfg = flagship_system()
+    llm = dataclasses.replace(cfg.audio_llm.llm, num_layers=depth)
+    return dataclasses.replace(cfg, audio_llm=dataclasses.replace(cfg.audio_llm,
+                                                                  llm=llm))
+
+
+def dp_train(argv, depth):
+    """bin/train.run at `depth` LLM layers (in the job this process joined,
+    if any): its output without the state, the peak memory, the final
+    trainable tree and its last gradients (on the host)."""
+    import gc
+
+    import torch
+
+    from freeze_omni_tpu_torch.bin import train
+    from freeze_omni_tpu_torch.training import optim
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = train.run(train.get_args(argv), system=dp_system(depth))
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    state = out.pop("state")
+    params = optim.map_tree(lambda p: p.detach().cpu(), state.trainable)
+    grads = optim.map_tree(lambda p: p.grad.detach().cpu(), state.trainable)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, params, grads
+
+
+def dp_rank(job, dev):
+    """A rank of 16a: the job's bin/train runs in this process's job; rank
+    0 saves each run's final trainable tree and its last (summed)
+    gradients."""
+    from freeze_omni_tpu_torch import weights
+    from freeze_omni_tpu_torch.utils.checkpoint import save_native
+
+    zero_launches()
+    runs = {}
+    for name, argv in job["runs"]:
+        out, params, grads = dp_train(argv, job["depth"])
+        if out["rank"] == 0 and name in job["save"]:
+            for what, tree in (("params", params), ("grads", grads)):
+                save_native(os.path.join(job["dir"], f"{name}.{what}.npz"),
+                            weights.to_numpy(tree))
+        runs[name] = {k: out[k] for k in ("losses", "step_seconds", "peak_gib",
+                                          "param_checksum", "host_id", "final_step")}
+    return {"runs": runs, "launches": read_launches()}
+
+
+def phase_dp_training(smi, lr=DP_LR):
+    """16a: bin/train.py data-parallel over two ranks (gloo sharing the card
+    on a one-card host, NCCL with a card each) at Qwen2-7B widths, --stage
+    state then all, batch 4, AdamW at `lr`, against one rank on the whole
+    batch, after one step and after four: every loss within DP_LOSS_RTOL,
+    the parameters within phase 14's rule (1e-5 where the last gradient is
+    resolved, 2 lr elsewhere), and after one step the gradients within
+    phase 14's rule; then a resume on both ranks from the four-step state
+    run's step-3 checkpoint."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch import weights
+    from freeze_omni_tpu_torch.training import optim
+    from freeze_omni_tpu_torch.utils.checkpoint import load_native
+
+    n = torch.cuda.device_count()
+    depth = 28 if n >= 2 else DP_SHARED_DEPTH
+    backend, per_card = tp_layout(2)
+    tmp = tempfile.mkdtemp(prefix="dp-")
+    ck = os.path.join(tmp, "ck")
+    runs = [(f"{stage}{steps}", stage, steps) for steps in (1, DP_STEPS)
+            for stage in ("state", "all")]
+    jobs = [(name, dp_argv(stage, steps, *(("--ckpt_dir", ck, "--save_every", "3")
+                                           if name == f"state{DP_STEPS}" else ()),
+                           lr=lr))
+            for name, stage, steps in runs]
+    jobs.append(("resume", dp_argv("state", 1, "--ckpt_dir", ck, "--save_every",
+                                   "3", "--resume", lr=lr)))
+    ref = {}
+    for name, stage, steps in runs:   # one rank on the whole batch, first
+        out, params, grads = dp_train(dp_argv(stage, steps, lr=lr), depth)
+        ref[name] = (out, params, grads)
+        log(f"[dp] ({smi}) one rank, --stage {stage}, batch {DP_BATCH}, {steps} "
+            f"step(s), lr {lr}, LLM depth {depth}: losses {out['losses']}; s/step "
+            f"{np.median(out['step_seconds'][1:] or out['step_seconds']):.4f} "
+            f"median; peak {out['peak_gib']:.2f} GiB")
+    ranks = run_ranks([{"mode": "dp", "hosts": 2, "host_id": r, "model": 1,
+                        "depth": depth, "runs": jobs, "save": [r[0] for r in runs],
+                        "dir": tmp} for r in range(2)], "16a data-parallel training")
+    for name, stage, steps in runs:
+        out, params, grads = ref[name]
+        got = [r["runs"][name] for r in ranks]
+        rels = np.abs(np.array([g["losses"] for g in got]) - out["losses"]) \
+            / np.abs(out["losses"])
+        rel = float(rels.max())
+        sums = {g["param_checksum"] for g in got}
+        mine, my_grads = (weights.from_jax(load_native(os.path.join(
+            tmp, f"{name}.{what}.npz")), device="cpu") for what in ("params", "grads"))
+        g_err = worst_grad_err(optim.leaves(my_grads), optim.leaves(grads))
+        worst_res, worst = params_after_step_agree(mine, params, grads)
+        if steps > 1:
+            for r, g in zip(ranks, got):
+                log(f"[dp] ({smi}) rank {r['rank']} ({backend}, {per_card} ranks a "
+                    f"card), --stage {stage}: s/step {np.median(g['step_seconds'][1:]):.4f} "
+                    f"median ({min(g['step_seconds']):.4f}-{max(g['step_seconds']):.4f}); "
+                    f"peak {g['peak_gib']:.2f} GiB; checksum {g['param_checksum']}")
+        log(f"[dp] ({smi}) 16a --stage {stage}, {steps} step(s), lr {lr}, 2 ranks x "
+            f"{DP_BATCH // 2} rows against one rank x {DP_BATCH}, LLM depth {depth}: "
+            f"losses {got[0]['losses']}, within {rel:.2e} relative (tol "
+            f"{DP_LOSS_RTOL}, per step {[float(f'{x:.2e}') for x in rels.max(0)]}); "
+            f"last gradients within {g_err:.2e} of each leaf's largest "
+            + (f"(tol {TRAIN_GRAD_FRAC})" if steps == 1 else
+               "(not held: the parameters they follow differ by up to 2 lr)")
+            + f"; params within {worst_res:.2e} where the last "
+            f"gradient is resolved (tol {TRAIN_PARAM_ATOL}), {worst:.2e} anywhere "
+            f"(tol {2 * lr}); checksums {sorted(sums)}")
+        if not rel <= DP_LOSS_RTOL:
+            raise AssertionError(f"16a {name}: DP losses differ from one rank's")
+        if len(sums) != 1:
+            raise AssertionError(f"16a {name}: the ranks' parameters differ")
+        if steps == 1 and not g_err <= TRAIN_GRAD_FRAC:
+            raise AssertionError(f"16a {name}: DP gradients differ from one "
+                                 f"rank's by {g_err}")
+        if not (worst_res <= TRAIN_PARAM_ATOL and worst <= 2 * lr):
+            raise AssertionError(f"16a {name}: DP parameters differ from one "
+                                 f"rank's by {worst_res} (resolved) / {worst}")
+    full = ranks[0]["runs"][f"state{DP_STEPS}"]["losses"]
+    for r in ranks:
+        res = r["runs"]["resume"]
+        rel = abs(res["losses"][0] - full[3]) / abs(full[3])
+        log(f"[dp] ({smi}) rank {r['rank']} resumed from step 3: step 4 loss "
+            f"{res['losses'][0]} against the uninterrupted {full[3]} (rel {rel:.2e})")
+        if res["final_step"] != DP_STEPS or not rel <= RESUME_RTOL:
+            raise AssertionError("16a: the DP resume does not continue the run")
+        if any(r["launches"].values()):
+            raise AssertionError("16a: training launched a serving kernel")
+    shutil.rmtree(tmp)
+
+
+def phase_dp_cli(smi):
+    """16b: bin/train.py --preset flagship --stage state at full depth, one
+    rank a card, where the host has two or more cards."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[dp] 16b not run: {n} card on this host, and bin/train.py's "
+            f"data-parallel mode takes one card a rank (two ranks sharing a "
+            f"card ran in 16a)")
+        return
+    argv = ["--preset", "flagship", "--stage", "state", "--steps", "3",
+            "--batch", str(2 * n)]
+    t = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "freeze_omni_tpu_torch.bin.train",
+                        *argv], capture_output=True, text=True,
+                       timeout=TP_RANK_TIMEOUT)
+    lines = [json.loads(x) for x in p.stdout.splitlines() if x.startswith("{")]
+    log(f"[dp] ({smi}) 16b bin/train.py {' '.join(argv)} over {n} cards: exit "
+        f"{p.returncode} in {time.perf_counter() - t:.1f} s; summaries {lines}")
+    if p.returncode or len(lines) != n or len({x["param_checksum"] for x in lines}) != 1:
+        raise AssertionError(f"16b: the data-parallel CLI failed:\n{p.stderr[-4000:]}")
+
+
+def forward_inputs(llm, cfg, seed):
+    """16c's and 16d's embeddings, looked up in the tree's int8 table:
+    [1, RING_T] and [PIPE_MICRO, PIPE_T] seeded token ids."""
+    import numpy as np
+    import torch
+
+    from freeze_omni_tpu_torch.models import qwen2
+
+    rng = np.random.RandomState(seed)
+    dev = llm["final_norm"]["scale"].device
+    ids = [torch.from_numpy(rng.randint(0, cfg.vocab_size, size=s)).to(dev)
+           for s in ((1, RING_T), (PIPE_MICRO, PIPE_T))]
+    return [qwen2.embed_tokens(llm, i) for i in ids]
+
+
+def forward_tree(bits, device):
+    from freeze_omni_tpu_torch.config import flagship_system
+    from freeze_omni_tpu_torch.ops.quant import init_quantized_llm
+
+    import torch
+
+    cfg = flagship_system().audio_llm.llm
+    llm = init_quantized_llm(cfg, torch.Generator(device=device).manual_seed(
+        FORWARD_SEED + bits), device, bits=bits)
+    return cfg, llm
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y = fn()
+    torch.cuda.synchronize()
+    return y, (time.perf_counter() - t) * 1e3
+
+
+def forward_rank(job, dev):
+    """A rank of 16c/16d: for int8 then int4, sp_forward on this rank's
+    slice at R = 4 (('seq',)) and R = 2 (data index 0 of a (data 2, seq 2)
+    mesh; data index 1 waits), then pp_forward over 4 stages with this
+    rank's stage_tree only. Each forward runs twice: the first's launches,
+    peak and output, the second's time."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from freeze_omni_tpu_torch.parallel import collectives
+    from freeze_omni_tpu_torch.parallel import mesh as pmesh
+    from freeze_omni_tpu_torch.parallel.pipeline_parallel import (pp_forward,
+                                                                   stage_tree)
+    from freeze_omni_tpu_torch.parallel.ring_attention import seq_slice, sp_forward
+
+    rings = {4: pmesh.make_mesh((4,), ("seq",)),
+             2: pmesh.make_mesh((2, 2), ("data", "seq"))}
+    stages = pmesh.make_mesh((PIPE_STAGES,), ("stage",))
+    out = {}
+    for bits in (8, 4):
+        cfg, llm = forward_tree(bits, dev)
+        x_ring, x_pipe = forward_inputs(llm, cfg, FORWARD_SEED)
+        params = {"layers": llm["layers"], "final_norm": llm["final_norm"]}
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+        for R, mesh in rings.items():
+            res = {}
+            if mesh.data_index == 0:
+                x = seq_slice(x_ring, mesh)
+                torch.cuda.reset_peak_memory_stats()
+                zero_launches()
+                y, ms = timed(lambda: sp_forward(params, cfg, x, mesh))
+                res = {"launches": read_launches(), "first_ms": ms,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+                _, res["ms"] = timed(lambda: sp_forward(params, cfg, x, mesh))
+                # one round's rotation of a K and a V block, alone
+                kv = [torch.zeros((1, RING_T // R, cfg.num_kv_heads, cfg.head_dim),
+                                  dtype=torch.bfloat16, device=dev)] * 2
+                group = mesh.axis_group("seq")
+                collectives.ring_shift(kv, group)
+                _, ms = timed(lambda: [collectives.ring_shift(kv, group)
+                                       for _ in range(SHIFT_ROUNDS)])
+                res["shift_ms"] = ms / SHIFT_ROUNDS
+                torch.save(y.cpu(), os.path.join(job["dir"], f"ring{R}_int{bits}_"
+                                                             f"r{dist.get_rank()}.pt"))
+                del y, x
+            dist.barrier()   # the waiting data index
+            out[f"ring{R}_int{bits}"] = res
+        stage = stage_tree(params, stages.axis_index("stage"), PIPE_STAGES)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        res = {"resident_gib": torch.cuda.memory_allocated() / 2**30}
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        y, res["first_ms"] = timed(lambda: pp_forward(stage, cfg, x_pipe, stages,
+                                                      PIPE_MICRO))
+        res["launches"] = read_launches()
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        _, res["ms"] = timed(lambda: pp_forward(stage, cfg, x_pipe, stages,
+                                                PIPE_MICRO))
+        torch.save(y.cpu(), os.path.join(job["dir"], f"pipe_int{bits}_"
+                                                     f"r{dist.get_rank()}.pt"))
+        out[f"pipe_int{bits}"] = res
+        del stage, y, x_ring, x_pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def row_err(out, ref):
+    """Worst |out - ref| over each row's largest |ref|, over the rows."""
+    out, ref = out.float(), ref.float()
+    return float(((out - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
+
+
+def phase_sp_pp(smi):
+    """16c/16d: sp_forward (R = 2, 4) and pp_forward (P = 4, M = 4) at
+    Qwen2-7B width and depth, int8 then int4, bf16 activations, against the
+    unsharded causal forward (qwen2.train_forward) on one rank."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from freeze_omni_tpu_torch.models import qwen2
+
+    backend, per_card = tp_layout(4)
+    ref = {}
+    for bits in (8, 4):
+        cfg, llm = forward_tree(bits, "cuda")
+        x_ring, x_pipe = forward_inputs(llm, cfg, FORWARD_SEED)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 2**30
+        for name, x in (("ring", x_ring), ("pipe", x_pipe)):
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                y, ms = timed(lambda: qwen2.train_forward(llm, cfg, x))
+            ref[f"{name}_int{bits}"] = (y.cpu(), ms, resident,
+                                        torch.cuda.max_memory_allocated() / 2**30)
+            log(f"[sp-pp] ({smi}) unsharded forward, int{bits}, {tuple(x.shape)} "
+                f"bf16: {ms:.1f} ms (first call), resident {resident:.2f} GiB "
+                f"(the whole tree), peak {ref[f'{name}_int{bits}'][3]:.2f} GiB")
+            del y
+        del llm, x_ring, x_pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="sp-pp-")
+    ranks = run_ranks([{"mode": "forward", "hosts": 1, "local_ranks": 4,
+                        "local_rank": r, "model": 1, "dir": tmp} for r in range(4)],
+                      "16c/16d ring attention and pipeline")
+    launches = {}
+    per_forward = 7 * cfg.num_layers
+    for bits in (8, 4):
+        key = "quant_matmul" if bits == 8 else "quant_matmul4"
+        other = "quant_matmul4" if bits == 8 else "quant_matmul"
+        for R in RING_WAYS:
+            name = f"ring{R}_int{bits}"
+            want, ref_ms, _, ref_peak = ref[f"ring_int{bits}"]
+            part = [r for r in ranks if r[name]]
+            got = torch.cat([torch.load(os.path.join(tmp, f"{name}_r{r['rank']}.pt"))
+                             for r in part], dim=1)
+            err = row_err(got, want)
+            log(f"[sp-pp] ({smi}) 16c sp_forward R={R}, int{bits}, B=1 T={RING_T} "
+                f"bf16 ({backend}, {per_card} ranks a card{'' if R == 4 else '; the other data index waits'}): "
+                f"hidden within {err:.3e} of each row's largest (tol {HIDDEN_ROW_TOL}); "
+                f"a forward {part[0][name]['ms']:.1f} ms on rank 0, of which "
+                f"{(R - 1) * cfg.num_layers} rotations of K and V at "
+                f"{part[0][name]['shift_ms']:.2f} ms each alone "
+                f"(first {part[0][name]['first_ms']:.1f}; unsharded {ref_ms:.1f} ms, "
+                f"first call); peak a rank "
+                f"{[round(r[name]['peak_gib'], 2) for r in part]} GiB against the "
+                f"unsharded {ref_peak:.2f}; launches {[r[name]['launches'][key] for r in part]}")
+            if not err <= HIDDEN_ROW_TOL:
+                raise AssertionError(f"16c {name}: the ring's hidden states differ")
+            for r in part:
+                lc = r[name]["launches"]
+                if lc[key] != per_forward or lc[other] or lc["quant_matmul4_small"]:
+                    raise AssertionError(f"16c {name} rank {r['rank']}: launches {lc}")
+                launches[key] = launches.get(key, 0) + lc[key]
+        name = f"pipe_int{bits}"
+        want, ref_ms, ref_res, ref_peak = ref[name]
+        err = max(row_err(torch.load(os.path.join(tmp, f"{name}_r{r['rank']}.pt")),
+                          want) for r in ranks)
+        log(f"[sp-pp] ({smi}) 16d pp_forward P={PIPE_STAGES} M={PIPE_MICRO} (b=1, "
+            f"T={PIPE_T}), int{bits} bf16 ({backend}, {per_card} ranks a card): every "
+            f"rank's hidden within {err:.3e} of each row's largest (tol "
+            f"{HIDDEN_ROW_TOL}); a forward {ranks[0][name]['ms']:.1f} ms (first "
+            f"{ranks[0][name]['first_ms']:.1f}; unsharded {ref_ms:.1f} ms, first "
+            f"call); resident a rank {[round(r[name]['resident_gib'], 2) for r in ranks]} "
+            f"GiB and peak {[round(r[name]['peak_gib'], 2) for r in ranks]} GiB against "
+            f"the whole tree's {ref_res:.2f} (unsharded peak {ref_peak:.2f}); "
+            f"launches {[r[name]['launches'][key] for r in ranks]}")
+        if not err <= HIDDEN_ROW_TOL:
+            raise AssertionError(f"16d {name}: the pipeline's hidden states differ")
+        for r in ranks:
+            lc = r[name]["launches"]
+            if lc[key] != per_forward // PIPE_STAGES * PIPE_MICRO or lc[other] \
+                    or lc["quant_matmul4_small"]:
+                raise AssertionError(f"16d {name} rank {r['rank']}: launches {lc}")
+            launches[key] = launches.get(key, 0) + lc[key]
+    shutil.rmtree(tmp)
+    return launches
+
+
+def phase_sp_pp_kernel_times(kernels, smi):
+    """16e: K1 and K5's tile path on one layer's 7 projections at N = 2048
+    (a ring rank at R = 2) and N = 512 (a microbatch), each beside its bound,
+    its plain version, the library call and a dense bf16 matmul."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from freeze_omni_tpu_torch.config import flagship_system
+    from freeze_omni_tpu_torch.ops.quant import init_quantized_llm
+
+    one = dataclasses.replace(flagship_system().audio_llm.llm, num_layers=1)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    out = {"quant_matmul": {}, "quant_matmul4": {}}
+    for bits, key in ((8, "quant_matmul"), (4, "quant_matmul4")):
+        llm = init_quantized_llm(one, g, "cuda", bits=bits)
+        for N in SP_PP_NS:
+            # the library call (torch._weight_int8pack_mm) takes ~0.1 s a
+            # projection at these N: 3 timed calls
+            t = (k1_layer(llm["layers"], None, N, g, lib_iters=3) if bits == 8
+                 else k5_layer(llm["layers"], N, g))
+            log(f"[sp-pp] 16e K{1 if bits == 8 else 5} one layer's 7 projections "
+                f"at N={N} ({smi}): kernel {t['ms']:.4f} ms eager, "
+                f"{t['device_ms']:.4f} device, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
+                f"{t['library_ms']} ms"
+                + (f" (device {t['library_device_ms']})" if "library_device_ms" in t
+                   else "") + f", dense bf16 {t['dense_bf16_ms']:.4f} ms")
+            out[key][f"N{N}"] = {k: t[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms", "dense_bf16_ms") if k in t}
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+    for entry in kernels:
+        key = entry["name"].split(" ")[0]
+        if key in out:
+            entry["sp_pp_shapes"] = out[key]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import gc
@@ -4607,6 +5103,18 @@ def main() -> int:
         key = entry["name"].split(" ")[0]
         entry["launches_phase15"] = served[key]
         entry["launches"] += served[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    phase_dp_training(smi)
+    phase_dp_cli(smi)
+    forwards = phase_sp_pp(smi)   # the ranks' own counts of their forwards
+    phase_sp_pp_kernel_times(kernels, smi)
+    log(f"[phase 16] {time.perf_counter() - t16:.1f} s wall")
+    for entry in kernels:
+        key = entry["name"].split(" ")[0]
+        entry["launches_phase16"] = forwards.get(key, 0)
+        entry["launches"] += forwards.get(key, 0)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -4617,5 +5125,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == TP_RANK_FLAG:
-        sys.exit(tp_rank(sys.argv[2]))   # a rank process of phase 15
+        sys.exit(tp_rank(sys.argv[2]))   # a rank process of phase 15 or 16
     sys.exit(main())

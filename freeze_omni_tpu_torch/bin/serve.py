@@ -74,12 +74,10 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import atexit
 import base64
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import threading
 from pathlib import Path
@@ -199,8 +197,8 @@ class Server:
         self.args = args
         self.follower = None   # (engine, tts_params) on a follower rank
         self._local_ranks = []
-        self._job = mh.resolve_job(args.coordinator, args.num_hosts,
-                                   args.host_id) if multi else None
+        if multi:   # refuses --num_hosts < 2 before anything starts
+            mh.resolve_job(args.coordinator, args.num_hosts, args.host_id)
         if args.tp > 1 and torch.device(args.device or "cuda").type == "cuda":
             n = torch.cuda.device_count()
             if n < args.tp:
@@ -331,41 +329,22 @@ class Server:
 
     def _join_ranks(self) -> torch.device:
         """Join the serving job and return this rank's device. Rank 0 of a
-        host starts the host's other --tp ranks first (this module with
-        this command line, the rank in the environment). The job is the
-        --coordinator's, or else this host alone, met at a free localhost
-        port."""
-        import socket
-
+        host starts the host's other --tp ranks first
+        (multihost.join_local_ranks)."""
         from ..parallel import multihost as mh
 
         args = self.args
-        place = json.loads(os.environ.get(_RANK_ENV, "{}"))
-        local_rank, coordinator = place.get("local_rank", 0), place.get("coordinator")
-        if self._job is None and coordinator is None:
-            with socket.socket() as s:
-                s.bind(("127.0.0.1", 0))
-                coordinator = f"127.0.0.1:{s.getsockname()[1]}"
-        if local_rank == 0 and args.tp > 1:
-            atexit.register(self._kill_local_ranks)
-            for r in range(1, args.tp):
-                env = dict(os.environ, **{_RANK_ENV: json.dumps(
-                    {"local_rank": r, "coordinator": coordinator})})
-                self._local_ranks.append(subprocess.Popen(
-                    [sys.executable, "-m", "freeze_omni_tpu_torch.bin.serve",
-                     *args.argv], env=env))
-        if not mh.maybe_initialize_from_args(args.coordinator, args.num_hosts,
-                                             args.host_id, args.tp, local_rank,
-                                             args.device):
-            mh.initialize(coordinator, 1, 0, args.tp, local_rank, args.device)
-        return mh.rank_device(args.device, local_rank)
+        dev, self._local_ranks = mh.join_local_ranks(
+            "freeze_omni_tpu_torch.bin.serve", args.argv, args.tp, _RANK_ENV,
+            args.device, args.coordinator, args.num_hosts, args.host_id)
+        return dev
 
     def close(self, timeout: float = 60.0) -> None:
         """Leave the serving job (ranked serving): rank 0 stops its ticker
         (no tick may race the stop broadcast) and broadcasts stop, which
         ends every follower's replay loop; every rank meets the others at a
         barrier and destroys the process group; then the ranks this process
-        started are waited for. Idempotent."""
+        started are reaped. Idempotent."""
         if not self.ranked:
             return
         from ..parallel import multihost as mh
@@ -376,21 +355,7 @@ class Server:
             self.service.engine.stop()
         mh.sync("serve-done")
         mh.shutdown()
-        for p in self._local_ranks:
-            try:
-                p.wait(timeout=timeout)
-            except subprocess.TimeoutExpired:
-                pass
-        self._kill_local_ranks()
-
-    def _kill_local_ranks(self) -> None:
-        """Kill the ranks this process started that still run (at close,
-        or at exit after a failed start, whose followers would wait for
-        rank 0 forever)."""
-        for p in self._local_ranks:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        mh.reap_ranks(self._local_ranks, timeout)
 
     def _init_per_session(self, params, tts_params, tokenizer) -> None:
         """One DuplexPipeline for every session (the KV of each is a float

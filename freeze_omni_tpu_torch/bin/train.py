@@ -21,12 +21,35 @@ or with --manifest a wav<TAB>transcript TSV for the ASR stages
 npz files (utils/checkpoint.save_native) and meta.json; --resume continues
 from them with the batches an uninterrupted run would see.
 
+Data parallelism, as the JAX CLI's: on a host with more than one card and
+a --batch they divide, the run is data-parallel over the cards, one process
+a card (this process, rank 0, starts the others with its own command line
+and their place in FO_TRAIN_RANK); otherwise it says so and trains on one
+card. `--coordinator host:port --num_hosts N --host_id h` (or the
+FO_COORDINATOR / FO_NUM_HOSTS / FO_HOST_ID env triple) joins N hosts, one
+process a card of each (one process a host with --device cpu); --batch
+must divide by the job's processes. Every process builds the same global
+batch and trains on its contiguous rows; the loss of each step is the
+global batch's (training/train_step.loss_denominators) and the gradients
+are summed over the processes before the AdamW step. The trainable tree and
+the optimizer state go out from rank 0 after init or --resume (every
+process loads the checkpoint), so the replicas stay bit-identical; only
+rank 0 prints the steps and writes `latest`, `opt`, meta.json and
+lora.npz, and every process prints the summary with its host_id, rank and
+param_checksum. The processes meet over NCCL with a card each and over
+gloo for --device cpu. Only the CLI (`main`) starts processes: `run()`
+trains in a job its caller already joined, over --coordinator's hosts one
+process each, or in this process alone.
+
 Usage (the card by default; --device cpu runs on the host):
   python -m freeze_omni_tpu_torch.bin.train --preset tiny --stage align \\
       --steps 20 --ckpt_dir /tmp/ckpt [--resume] [--batch 4] [--lr 1e-3] \\
       [--manifest train.tsv --epochs 2 --tokenizer /path/to/hf_tokenizer]
-The multi-host flags (--coordinator, --num_hosts, --host_id) exit: they
-wait for ROADMAP.md D9b (data-parallel and multi-host training).
+  # two CPU "hosts" (run each line in its own shell):
+  python -m freeze_omni_tpu_torch.bin.train --device cpu --batch 8 \\
+      --coordinator 127.0.0.1:29500 --num_hosts 2 --host_id 0
+  python -m freeze_omni_tpu_torch.bin.train --device cpu --batch 8 \\
+      --coordinator 127.0.0.1:29500 --num_hosts 2 --host_id 1
 """
 
 from __future__ import annotations
@@ -35,11 +58,18 @@ import argparse
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 import time
+from typing import List, Optional
 
 import torch
 
-_WAITING = ("coordinator", "num_hosts", "host_id")
+# a local rank started by rank 0 of its host runs its command line and gets
+# its place in the job through this
+_RANK_ENV = "FO_TRAIN_RANK"
+SUMMARY_KEYS = ("final_step", "first_loss", "final_loss", "host_id", "rank",
+                "param_checksum")
 
 
 def get_args(argv=None):
@@ -71,11 +101,16 @@ def get_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--with_decoder", action="store_true", default=True)
-    # the JAX trainer's multi-host flags wait for ROADMAP D9b
-    p.add_argument("--coordinator", default=None)
-    p.add_argument("--num_hosts", type=int, default=None)
-    p.add_argument("--host_id", type=int, default=None)
-    return p.parse_args(argv)
+    # multi-host: one trainer process a card of each host; the gradients are
+    # summed across processes once a step (parallel/multihost.py)
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0: enables multi-host "
+                        "(env: FO_COORDINATOR/FO_NUM_HOSTS/FO_HOST_ID)")
+    p.add_argument("--num_hosts", type=int, default=1)
+    p.add_argument("--host_id", type=int, default=0)
+    args = p.parse_args(argv)
+    args.argv = list(sys.argv[1:] if argv is None else argv)
+    return args
 
 
 def stage_trees(stage: str, params: dict, extra):
@@ -129,23 +164,94 @@ def build_trees(stage: str, cfg, dcfg, seed: int, device, ctc_vocab: int,
     return stage_trees(stage, params, extra)
 
 
-def run(args) -> dict:
-    """Train as the flags say. Returns the summary with each step's loss
-    ("losses") and host seconds ("step_seconds")."""
-    for flag in _WAITING:
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag} is not in the PyTorch port yet: it "
-                             f"waits for ROADMAP.md D9b (multi-GPU training)")
+class _Job:
+    """The processes a run trains over: `group` None for one process, else
+    the world group of `world` ranks (this one `rank`, on `device`);
+    `owned` when this run joined the job (and leaves it at the end),
+    `started` the local ranks this process started."""
+
+    def __init__(self, device, group=None, rank=0, world=1, owned=False,
+                 started: Optional[List[subprocess.Popen]] = None):
+        self.device, self.group, self.rank, self.world = device, group, rank, world
+        self.owned, self.started = owned, started or []
+
+    def leave(self, timeout: float = 600.0) -> None:
+        """Meet the other ranks, leave the job this run joined, and reap
+        the ranks this process started (raises if one failed)."""
+        from ..parallel import multihost as mh
+
+        if not self.owned:
+            return
+        mh.sync("train-done")
+        mh.shutdown()
+        codes = mh.reap_ranks(self.started, timeout)
+        if any(codes):
+            raise SystemExit(f"a local training rank exited with {codes}")
+
+
+def join_job(args, local_ranks: bool = False) -> _Job:
+    """The job of a run, as the JAX CLI lays out its devices: a job the
+    caller already joined (torch.distributed initialized: every rank of it
+    trains); --coordinator's hosts, --batch divisible by all their
+    processes; else one process. With `local_ranks` (the CLI's main), a
+    host with more than one card runs a process a card where --batch
+    divides by them, rank 0 starting the others with its command line
+    (multihost.join_local_ranks); without it, one process a host."""
+    import torch.distributed as dist
+
+    from ..parallel import multihost as mh
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(args.device)
+    if dist.is_initialized():
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return _Job(dev, dist.group.WORLD, dist.get_rank(), dist.get_world_size())
+    job = mh.resolve_job(args.coordinator, args.num_hosts, args.host_id)
+    # a process a card of the host; a named card (cuda:i) is one
+    cards = torch.cuda.device_count() \
+        if local_ranks and dev.type == "cuda" and dev.index is None else 1
+    if job is not None:
+        n_dev = job[1] * cards
+        if args.batch % n_dev:
+            raise SystemExit(f"multi-host requires --batch divisible by the "
+                             f"global device count {n_dev}, got {args.batch}")
+    elif cards > 1 and args.batch % cards:
+        print(f"{cards} devices but batch {args.batch} not divisible; "
+              f"running single-device", flush=True)
+        cards = 1
+    if job is None and cards == 1:
+        return _Job(dev)
+    dev, started = mh.join_local_ranks(
+        "freeze_omni_tpu_torch.bin.train", args.argv, cards, _RANK_ENV,
+        args.device, args.coordinator, args.num_hosts, args.host_id)
+    if mh.is_primary() or job is not None:
+        print(f"multi-host data-parallel: {job[1]} hosts x {cards} devices"
+              if job is not None else f"data-parallel over {cards} devices",
+              flush=True)
+    return _Job(dev, dist.group.WORLD, dist.get_rank(), dist.get_world_size(),
+                owned=True, started=started)
+
+
+def run(args, system=None, job: Optional[_Job] = None) -> dict:
+    """Train as the flags say (`system`: a SystemConfig to train instead of
+    the preset's) over `job`, by default join_job(args): run() starts no
+    process. At the end it leaves a job join_job joined (`owned`), and
+    reaps the ranks started for it. Returns the summary with each
+    step's loss ("losses"), host seconds ("step_seconds") and the final
+    TrainState ("state")."""
     from .. import weights
     from ..config import flagship_system, tiny_system
+    from ..parallel import multihost as mh
     from ..training import data as data_mod
     from ..training import optim
     from ..training import train_step as ts
     from ..utils import checkpoint as ckpt_mod
-    from ..utils.device import resolve_device
 
-    device = resolve_device(args.device)
-    sys_cfg = tiny_system() if args.preset == "tiny" else flagship_system()
+    job = job or join_job(args)
+    device, dp = job.device, job.group
+    primary = mh.is_primary()
+    sys_cfg = system or (tiny_system() if args.preset == "tiny" else flagship_system())
     cfg, dcfg = sys_cfg.audio_llm, sys_cfg.tts.decoder
 
     tokenizer = None
@@ -190,6 +296,8 @@ def run(args) -> dict:
                   flush=True)
         state.step = start_step
         print(f"resumed from step {start_step}", flush=True)
+    if dp is not None:
+        ts.broadcast_train_state(state, dp)
 
     if args.manifest:
         batch_iter = mani_mod.prefetch(mani_mod.manifest_batches(
@@ -208,18 +316,23 @@ def run(args) -> dict:
     for i, batch in enumerate(batch_iter):
         if i >= args.steps:
             break
+        denoms = None
+        if dp is not None:
+            # the global batch's denominators, then this rank's rows
+            denoms = ts.loss_denominators(args.stage, batch)
+            batch = mh.local_batch_slice(batch, job.world, job.rank)
         ts_ = time.perf_counter()
         state, metrics = ts.stage_step(args.stage, state, frozen, cfg, dcfg,
-                                       ts.to_tensors(batch, device))
+                                       ts.to_tensors(batch, device), denoms, dp)
         loss = float(metrics["loss"])   # waits for the step
         step_seconds.append(time.perf_counter() - ts_)
         losses.append(loss)
         step = start_step + i + 1
-        if step % 5 == 0 or i == 0:
+        if (step % 5 == 0 or i == 0) and primary:
             print(f"step {step}: loss={loss:.4f} "
                   f"({(time.perf_counter() - t0) / (i + 1):.2f}s/step)",
                   flush=True)
-        if args.ckpt_dir and step % args.save_every == 0:
+        if args.ckpt_dir and step % args.save_every == 0 and primary:
             ckpt_mod.save_native(latest, weights.to_numpy(state.trainable))
             # the moments in a sibling file, so `latest` stays a pure
             # params checkpoint
@@ -229,7 +342,7 @@ def run(args) -> dict:
                 json.dump({"step": step, "loss": loss}, f)
             print(f"saved checkpoint at step {step}", flush=True)
 
-    if args.stage == "lora" and args.ckpt_dir:
+    if args.stage == "lora" and args.ckpt_dir and primary:
         from ..models import lora as lora_mod
 
         os.makedirs(args.ckpt_dir, exist_ok=True)
@@ -239,16 +352,22 @@ def run(args) -> dict:
 
     if not losses:
         raise SystemExit("no training step ran (--steps 0 or an empty manifest)")
-    return {"final_step": start_step + len(losses),
-            "first_loss": round(losses[0], 4),
-            "final_loss": round(losses[-1], 4),
-            "losses": losses, "step_seconds": step_seconds}
+    out = {"final_step": start_step + len(losses),
+           "first_loss": round(losses[0], 4),
+           "final_loss": round(losses[-1], 4)}
+    if dp is not None:
+        # every rank reports; the checksum probes the replicas for
+        # divergence (they hold the same parameters)
+        out.update(host_id=mh.host_index(), rank=job.rank,
+                   param_checksum=round(mh.tree_checksum(state.trainable), 6))
+    job.leave()
+    return dict(out, losses=losses, step_seconds=step_seconds, state=state)
 
 
 def main(argv=None) -> dict:
-    out = run(get_args(argv))
-    print(json.dumps({k: out[k] for k in ("final_step", "first_loss",
-                                          "final_loss")}))
+    args = get_args(argv)
+    out = run(args, job=join_job(args, local_ranks=True))
+    print(json.dumps({k: out[k] for k in SUMMARY_KEYS if k in out}), flush=True)
     return out
 
 

@@ -1,13 +1,18 @@
-"""The collectives of the port's multi-process serving, in one place.
+"""The collectives of the port's multi-process paths, in one place.
 
 Every caller (the tensor-parallel LLM, the sharded session store, the
-engine's result gathers, the lockstep bundle broadcast) goes through these
-helpers and picks no collective of its own. A group runs over NCCL when
-every rank has a CUDA card of its own, and over gloo for CPU ranks or for
-ranks that share one card (parallel/multihost.choose_backend). gloo takes
+engine's result gathers, the lockstep bundle broadcast, data-parallel
+training, ring attention's KV rotation, the pipeline's stage-to-stage
+sends) goes through these helpers and picks no collective of its own. A
+group runs over NCCL when every rank has a CUDA card of its own, and over
+gloo for CPU ranks or for ranks that share one card
+(parallel/multihost.choose_backend). gloo takes
 CUDA tensors only in `broadcast` and `all_reduce`: under gloo the helpers
 here stage every other collective through host memory, so a caller hands
-them tensors on its own device either way.
+them tensors on its own device either way. Point-to-point transfers
+(`send_recv`, `ring_shift`) post every send and receive of a rank in one
+`dist.batch_isend_irecv` before waiting on any: a blocking send followed
+by a receive deadlocks around a ring.
 
 `group=None` means the default (world) group. A helper on a group of one
 rank returns its input unchanged and runs no collective.
@@ -15,7 +20,7 @@ rank returns its input unchanged and runs no collective.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -83,3 +88,53 @@ def broadcast_object(obj: Any, src: int, group=None) -> Any:
     box: List[Optional[Any]] = [obj]
     dist.broadcast_object_list(box, src=src, group=group)
     return box[0]
+
+
+def _global_rank(group, index: int) -> int:
+    return index if group is None else dist.get_global_rank(group, index)
+
+
+def prepare_p2p(group=None) -> None:
+    """Before point-to-point calls that involve only some ranks of `group`:
+    under NCCL, one collective on the group, which sets up its
+    communicator (NCCL wants every rank of a group in its first call).
+    Nothing under gloo or on a group of one rank."""
+    if group_size(group) > 1 and dist.get_backend(group) == "nccl":
+        dist.all_reduce(torch.zeros(1, device=comm_device(group)), group=group)
+
+
+def send_recv(send: Sequence[torch.Tensor] = (), dst: Optional[int] = None,
+              recv: Sequence[torch.Tensor] = (), src: Optional[int] = None,
+              group=None) -> List[torch.Tensor]:
+    """Send the tensors `send` to the rank at group index `dst` and receive
+    into `recv` (in place, in order) from group index `src`, all posted in
+    one batch; either list may be empty. Returns `recv`. A call that
+    involves only some ranks of the group follows prepare_p2p(group)."""
+    ops, landing = [], []
+    for t in send:
+        buf = (t.detach().cpu() if _staged(t, group) else t).contiguous()
+        ops.append(dist.P2POp(dist.isend, buf, _global_rank(group, dst), group))
+    for t in recv:
+        land = torch.empty(t.shape, dtype=t.dtype) if _staged(t, group) else t
+        ops.append(dist.P2POp(dist.irecv, land, _global_rank(group, src), group))
+        landing.append(land)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for t, land in zip(recv, landing):
+        if land is not t:
+            t.copy_(land)
+    return list(recv)
+
+
+def ring_shift(tensors: List[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The `ppermute` of a ring: every rank sends each tensor to group
+    index i + 1 (mod n) and gets back, in new tensors on the same devices,
+    what index i - 1 sent, in one send_recv. A group of one rank returns
+    `tensors`."""
+    n = group_size(group)
+    if n == 1:
+        return list(tensors)
+    me = dist.get_rank(group)
+    fresh = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in tensors]
+    return send_recv(tensors, (me + 1) % n, fresh, (me - 1) % n, group)

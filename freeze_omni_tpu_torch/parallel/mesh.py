@@ -5,8 +5,11 @@ The JAX package places one SPMD program on a ('data', 'model') device mesh
 and lets XLA insert the collectives. The port runs one process per card
 (or several processes sharing a card, over gloo), so a mesh here is this
 process's place in a grid of ranks, laid out row-major as the JAX mesh
-reshapes its devices (rank = data_index * model + model_index), with a
-`torch.distributed` subgroup along each axis:
+reshapes its devices (rank = data_index * inner + inner_index), with a
+`torch.distributed` subgroup along each axis. The inner axis is 'model'
+(tensor parallelism, below), 'seq' (parallel/ring_attention.py) or
+'stage' (parallel/pipeline_parallel.py); a 1-D mesh has that axis alone.
+On a ('data', 'model') mesh:
 
 - sessions shard over 'data': each data index holds its share of the
   session rows (runtime/session.SessionStore.shard);
@@ -35,18 +38,27 @@ import torch
 from ..config import LLMConfig
 
 AXES = ("data", "model")
+# the axes a mesh may have beside 'data': tensor parallelism ('model'),
+# ring attention's sequence axis ('seq', parallel/ring_attention.py) and the
+# GPipe stages ('stage', parallel/pipeline_parallel.py)
+INNER_AXES = ("model", "seq", "stage")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place in a (data, model) grid of ranks."""
+    """This process's place in a (data, inner) grid of ranks; the inner
+    axis is one of INNER_AXES (a 1-D mesh is data 1). Callers read an axis
+    by name (`axis_size`, `axis_index`, `axis_group`); the tensor-parallel
+    callers read `model`, `model_index` and `model_group`, which a mesh
+    without a 'model' axis gives as one rank."""
 
-    shape: Tuple[int, int]          # (data, model)
+    shape: Tuple[int, int]          # (data, inner)
     rank: int
     data_index: int
-    model_index: int
-    model_group: object = None      # the ranks of this data index
-    data_group: object = None       # the ranks of this model index
+    inner_index: int
+    inner_group: object = None      # the ranks of this data index
+    data_group: object = None       # the ranks of this inner index
+    inner_axis: str = "model"
 
     @property
     def data(self) -> int:
@@ -54,24 +66,67 @@ class Mesh:
 
     @property
     def model(self) -> int:
-        return self.shape[1]
+        return self.shape[1] if self.inner_axis == "model" else 1
 
-    def rank_of(self, data_index: int, model_index: int) -> int:
-        """The global rank at (data_index, model_index)."""
-        return data_index * self.model + model_index
+    @property
+    def model_index(self) -> int:
+        return self.inner_index if self.inner_axis == "model" else 0
+
+    @property
+    def model_group(self):
+        return self.inner_group if self.inner_axis == "model" else None
+
+    def _axis(self, name: str) -> int:
+        if name == "data":
+            return 0
+        if name == self.inner_axis:
+            return 1
+        raise ValueError(f"the mesh has no axis {name!r} (its axes: data, "
+                         f"{self.inner_axis})")
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self._axis(name)]
+
+    def axis_index(self, name: str) -> int:
+        return (self.data_index, self.inner_index)[self._axis(name)]
+
+    def axis_group(self, name: str):
+        """The torch.distributed group along axis `name` that holds this
+        rank (None where the mesh has one rank)."""
+        return (self.data_group, self.inner_group)[self._axis(name)]
+
+    def rank_of(self, data_index: int, inner_index: int) -> int:
+        """The global rank at (data_index, inner_index)."""
+        return data_index * self.shape[1] + inner_index
 
 
-def make_mesh(shape: Tuple[int, int] = (1, 1), axes: Tuple[str, str] = AXES
+def _grid(shape, axes) -> Tuple[Tuple[int, int], str]:
+    """(data, inner) and the inner axis's name of a 1-D (X,) or 2-D
+    ("data", X) mesh; ("data",) alone is (n, 1) with no inner ranks."""
+    axes, shape = tuple(axes), tuple(int(n) for n in shape)
+    if len(axes) != len(shape):
+        raise ValueError(f"mesh shape {shape} does not match axes {axes}")
+    if axes == ("data",):
+        return (shape[0], 1), "model"
+    if len(axes) == 1 and axes[0] in INNER_AXES:
+        return (1, shape[0]), axes[0]
+    if len(axes) == 2 and axes[0] == "data" and axes[1] in INNER_AXES:
+        return (shape[0], shape[1]), axes[1]
+    raise ValueError(f"axes must be (X,) or ('data', X) with X one of "
+                     f"{INNER_AXES}, got {axes}")
+
+
+def make_mesh(shape: Tuple[int, ...] = (1, 1), axes: Tuple[str, ...] = AXES
               ) -> Mesh:
-    """The (data, model) mesh over every process of the initialized job
-    (torch.distributed.init_process_group; parallel/multihost.initialize).
-    A (1, 1) mesh needs no process group. Every rank must call this, in the
-    same order as any other group creation: it creates the subgroups."""
+    """The mesh over every process of the initialized job
+    (torch.distributed.init_process_group; parallel/multihost.initialize):
+    1-D (X,) or 2-D ("data", X), X one of INNER_AXES, laid out as the JAX
+    mesh reshapes its devices. A mesh of one rank needs no process group.
+    Every rank must call this, in the same order as any other group
+    creation: it creates the subgroups."""
     import torch.distributed as dist
 
-    if tuple(axes) != AXES:
-        raise ValueError(f"axes must be {AXES}, got {axes}")
-    d, m = int(shape[0]), int(shape[1])
+    (d, m), inner = _grid(shape, axes)
     n = d * m
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n > world:
@@ -80,17 +135,18 @@ def make_mesh(shape: Tuple[int, int] = (1, 1), axes: Tuple[str, str] = AXES
         raise ValueError(f"mesh {tuple(shape)} covers {n} of the job's "
                          f"{world} processes")
     rank = dist.get_rank() if dist.is_initialized() else 0
-    model_group = data_group = None
+    inner_group = data_group = None
     if n > 1:
         for di in range(d):   # every rank creates every group, in order
             g = dist.new_group([di * m + j for j in range(m)])
             if di == rank // m:
-                model_group = g
+                inner_group = g
         for j in range(m):
             g = dist.new_group([di * m + j for di in range(d)])
             if j == rank % m:
                 data_group = g
-    return Mesh((d, m), rank, rank // m, rank % m, model_group, data_group)
+    return Mesh((d, m), rank, rank // m, rank % m, inner_group, data_group,
+                inner)
 
 
 # -- shard rules --------------------------------------------------------------

@@ -16,8 +16,13 @@ the other collectives through the host.
 
 from __future__ import annotations
 
+import atexit
+import json
 import os
-from typing import Optional, Tuple
+import socket
+import subprocess
+import sys
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,23 +103,83 @@ def maybe_initialize_from_args(coordinator: Optional[str], num_hosts: int,
     return True
 
 
+def join_local_ranks(module: str, argv: List[str], local_ranks: int,
+                     env_name: str, device, coordinator: Optional[str],
+                     num_hosts: int, host_id: int
+                     ) -> Tuple[torch.device, List[subprocess.Popen]]:
+    """The CLIs' job of `local_ranks` processes a host (bin/serve --tp,
+    bin/train over a host's cards). Local rank 0 of a host starts the
+    others first: `python -m module *argv` (its own command line, so every
+    rank parses the same flags), each with its place in the env variable
+    `env_name`. The job is --coordinator's hosts (maybe_initialize_from_args)
+    or else this host alone, met at a free localhost port. Returns this
+    rank's device and the processes it started, which are killed at exit
+    unless reaped first (after a failed start they would wait for rank 0
+    forever)."""
+    place = json.loads(os.environ.get(env_name, "{}"))
+    local_rank, local_coord = place.get("local_rank", 0), place.get("coordinator")
+    if resolve_job(coordinator, num_hosts, host_id) is None and local_coord is None:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            local_coord = f"127.0.0.1:{s.getsockname()[1]}"
+    started: List[subprocess.Popen] = []
+    if local_rank == 0 and local_ranks > 1:
+        atexit.register(_kill_ranks, started)
+        for r in range(1, local_ranks):
+            env = dict(os.environ, **{env_name: json.dumps(
+                {"local_rank": r, "coordinator": local_coord})})
+            started.append(subprocess.Popen([sys.executable, "-m", module, *argv],
+                                            env=env))
+    if not maybe_initialize_from_args(coordinator, num_hosts, host_id,
+                                      local_ranks, local_rank, device):
+        initialize(local_coord, 1, 0, local_ranks, local_rank, device)
+    return rank_device(device, local_rank), started
+
+
+def reap_ranks(procs: List[subprocess.Popen], timeout: float) -> List[int]:
+    """The exit codes of the processes join_local_ranks started, each
+    waited for up to `timeout` seconds and killed if it still runs."""
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=timeout))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            codes.append(p.wait())
+    return codes
+
+
+def _kill_ranks(procs: List[subprocess.Popen]) -> None:
+    """Kill the processes of `procs` that still run."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
 def is_primary() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def host_index() -> int:
+    """This process's host in the job (0 outside one)."""
+    return dist.get_rank() // _LAYOUT["local_ranks"] if dist.is_initialized() else 0
 
 
 def make_global_mesh(axes: Tuple[str, ...] = ("data",), model_par: int = 1):
     """A global mesh with the host boundary respected.
 
-    1-D ('data',): every rank on the data axis, hosts outermost (pure DP).
-    2-D ('data', 'model'): model_par must divide the per-host process count
-    so that every TP group lives inside one host (its per-layer collectives
-    must not cross hosts); 'data' spans hosts."""
+    1-D ('data',): every rank on the data axis, hosts outermost (pure DP);
+    1-D (X,) with X 'model', 'seq' or 'stage': every rank on that axis.
+    2-D ('data', X): model_par (the size of X) must divide the per-host
+    process count so that every group of X lives inside one host (its
+    per-layer collectives must not cross hosts); 'data' spans hosts."""
     from .mesh import make_mesh
 
     n = dist.get_world_size() if dist.is_initialized() else 1
     local = _LAYOUT["local_ranks"] if dist.is_initialized() else 1
     if len(axes) == 1:
-        return make_mesh((n, 1))
+        return make_mesh((n,), tuple(axes))
     if len(axes) != 2:
         raise ValueError(f"axes must be 1-D or 2-D, got {axes}")
     if model_par > local or local % model_par != 0:

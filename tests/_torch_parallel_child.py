@@ -1,11 +1,14 @@
-"""One rank of the port's multi-process CPU tests (tests/test_torch_parallel.py).
+"""One rank of the port's multi-process CPU tests (tests/test_torch_parallel.py,
+test_torch_ring_attention.py, test_torch_pipeline_parallel.py,
+test_torch_train_dp.py).
 
     python tests/_torch_parallel_child.py <host:port> <rank> <world> <job.json>
 
-Joins a gloo job of `world` CPU processes, builds the port's ServingEngine on
-a ('data', 'model') mesh from the weights and config the job names (written
-by the parent test from the JAX package's trees), runs the job's mode and
-prints one line `RESULT <json>`. Imports no JAX: the parent compares.
+Joins a gloo job of `world` CPU processes, runs the job's mode on the
+weights the job names (written by the parent test from the JAX package's
+trees) and prints one line `RESULT <json>`. Imports no JAX: the parent
+compares. The serving modes build the port's ServingEngine on a
+('data', 'model') mesh.
 
 Modes:
 - "ticks": per weight tree, two sessions through dual-identity ticks across
@@ -14,7 +17,16 @@ Modes:
   tests/_multihost_serving_child.py) while the others run `run_follower`,
   snapshots and restores the sessions (`snapshot_roundtrip`), then a
   DuplexService on the same PrimaryDriver speaks, continues a response and ticks
-  under pipeline_ticks (`serve_through_primary`).
+  under pipeline_ticks (`serve_through_primary`);
+- "ring" / "pipeline": every case of the job on its own mesh (('seq',),
+  ('data', 'seq'), ('stage',), ('data', 'stage')), in order on every rank:
+  parallel/ring_attention.sp_forward on this rank's time slice, gathered,
+  or parallel/pipeline_parallel.pp_forward; a data index takes its
+  contiguous rows of the embeds. Each rank saves its outputs to
+  <out>/rank<r>.npz;
+- "train": bin/train.main with the job's argv and this rank as host
+  --host_id of a --coordinator job (the CLI joins the job itself); the
+  result holds the printed summary keys and every step's loss.
 """
 
 import dataclasses
@@ -247,6 +259,47 @@ def run_lockstep(job, mesh):
     return result
 
 
+def run_forwards(job):
+    """The "ring" / "pipeline" cases of `job` on this rank."""
+    import torch
+
+    from freeze_omni_tpu_torch import weights
+    from freeze_omni_tpu_torch.config import LLMConfig
+    from freeze_omni_tpu_torch.parallel import mesh as pmesh
+    from freeze_omni_tpu_torch.parallel.pipeline_parallel import pp_forward
+    from freeze_omni_tpu_torch.parallel.ring_attention import (gather_seq,
+                                                                seq_slice,
+                                                                sp_forward)
+    from freeze_omni_tpu_torch.utils.checkpoint import load_native
+
+    cfg = LLMConfig(**job["cfg"])
+    trees = {name: weights.from_jax(load_native(path), device="cpu")
+             for name, path in job["params"].items()}
+    embeds = torch.from_numpy(np.load(job["embeds"]))
+    out = {}
+    for case in job["cases"]:
+        mesh = pmesh.make_mesh(case["mesh"], case["axes"])
+        rows = embeds.shape[0] // mesh.data
+        x = embeds[mesh.data_index * rows:(mesh.data_index + 1) * rows]
+        params = trees[case["tree"]]
+        if job["mode"] == "ring":
+            y = gather_seq(sp_forward(params, cfg, seq_slice(x, mesh), mesh), mesh)
+        else:
+            y = pp_forward(params, cfg, x, mesh, case["microbatches"])
+        out[case["name"]] = y.numpy()
+    np.savez(os.path.join(job["out"], f"rank{mesh.rank}.npz"), **out)
+    return {"cases": sorted(out)}
+
+
+def run_train(job, coordinator, rank, world):
+    from freeze_omni_tpu_torch.bin import train
+
+    out = train.main(job["argv"] + ["--coordinator", coordinator, "--num_hosts",
+                                    str(world), "--host_id", str(rank)])
+    return {"summary": {k: out[k] for k in train.SUMMARY_KEYS if k in out},
+            "losses": out["losses"]}
+
+
 def main():
     coordinator, rank, world, job_path = sys.argv[1], int(sys.argv[2]), \
         int(sys.argv[3]), sys.argv[4]
@@ -257,14 +310,23 @@ def main():
     torch.set_num_threads(1)   # the test workers share the host's cores
     from freeze_omni_tpu_torch.parallel import multihost as mh
 
+    if job["mode"] == "train":   # the CLI joins (and leaves) the job
+        result = run_train(job, coordinator, rank, world)
+        print("RESULT " + json.dumps(dict(result, rank=rank)), flush=True)
+        return
+
     if job["hosts"] > 1:   # one rank a host: the --coordinator layout
         mh.initialize(coordinator, world, rank, device="cpu")
     else:                  # one host, `world` local ranks: the --tp layout
         mh.initialize(coordinator, 1, 0, local_ranks=world, local_rank=rank,
                       device="cpu")
-    mesh = mh.make_global_mesh(("data", "model"), model_par=job["mesh"][1])
-    assert tuple(mesh.shape) == tuple(job["mesh"]), mesh.shape
-    result = {"ticks": run_ticks, "lockstep": run_lockstep}[job["mode"]](job, mesh)
+    if job["mode"] in ("ring", "pipeline"):
+        result = run_forwards(job)
+    else:
+        mesh = mh.make_global_mesh(("data", "model"), model_par=job["mesh"][1])
+        assert tuple(mesh.shape) == tuple(job["mesh"]), mesh.shape
+        result = {"ticks": run_ticks, "lockstep": run_lockstep}[job["mode"]](
+            job, mesh)
     result["rank"] = rank
     print("RESULT " + json.dumps(result), flush=True)
     mh.sync("done")

@@ -69,7 +69,8 @@ def _free_port() -> int:
 def start_ranks(job: dict, tmp_path, world: int = 2) -> list:
     """Start the child on `world` gloo ranks; collect_ranks waits for them
     (the caller works meanwhile: the ranks need one core each)."""
-    path = tmp_path / f"job-{job['mode']}-{'x'.join(map(str, job['mesh']))}.json"
+    shape = job.get("mesh", [world])
+    path = tmp_path / f"job-{job['mode']}-{'x'.join(map(str, shape))}.json"
     path.write_text(json.dumps(job))
     coord = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep +

@@ -5,7 +5,8 @@ Every stage runs and prints the JAX CLI's summary keys; a run resumed from
 its checkpoint gives the uninterrupted run's losses (within 1e-6 relative:
 the same weights, moments, step count and batches on the same host); the
 LoRA stage's lora.npz reads the same through both packages' `lora.load`
-and merges into the tiny LLM; the multi-host flags exit naming ROADMAP D9.
+and merges into the tiny LLM (data-parallel and multi-host runs:
+tests/test_torch_train_dp.py).
 Manifest batches equal the JAX package's for the same manifest, tokenizer
 and seed (fbank within 1e-3: one wav is resampled, through the port's
 native resampler and the JAX numpy one, atol 1e-6 apart).
@@ -92,13 +93,6 @@ def test_lora_stage_writes_an_adapter_both_packages_read(tmp_path):
                             dtype=torch.float32, device="cpu")
     merged = tlora.merge(llm, weights.from_jax(ours, device="cpu"), s1)
     assert not torch.equal(merged["layers"]["q"]["w"], llm["layers"]["q"]["w"])
-
-
-@pytest.mark.parametrize("flag", [["--coordinator", "127.0.0.1:1234"],
-                                  ["--num_hosts", "2"], ["--host_id", "1"]])
-def test_multi_host_flags_wait_for_d9(flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md D9b "):
-        train("--stage", "state", "--steps", "1", *flag)
 
 
 def _manifest(tmp_path):
