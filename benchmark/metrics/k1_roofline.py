@@ -1,0 +1,7 @@
+"""K1 (int8 weight-only projections): bound over device time in the traced steps, %."""
+
+from benchmark import readers
+
+
+def read(ctx):
+    return readers.linear_roofline(ctx, "k1")
