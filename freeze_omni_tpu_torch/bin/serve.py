@@ -87,6 +87,7 @@ import torch
 
 from ..config import (flagship_system, load_reference_app_yaml,
                       load_system_config, read_yaml, tiny_system)
+from ..utils import logging as trace
 
 MONITOR_HTML = Path(__file__).resolve().parents[2] / "freeze_omni_tpu" / "bin" / "monitor.html"
 
@@ -127,6 +128,11 @@ def get_args(argv=None):
     p.add_argument("--http_port", type=int, default=0,
                    help="also serve the monitoring GUI (monitor.html) over "
                         "HTTP on this port")
+    p.add_argument("--trace", action="store_true",
+                   help="turn on the serving tick's spans and counters "
+                        "(utils/logging) and serve their per-step means over "
+                        "the last steps as JSON at /stats on --http_port "
+                        "(needs --engine)")
     p.add_argument("--engine", action="store_true",
                    help="serve all sessions through the continuous-batching "
                         "DuplexService (default: one DuplexSession per "
@@ -190,6 +196,9 @@ class Server:
         if multi and not args.engine:
             raise SystemExit("--coordinator requires --engine (multi-host "
                              "serving is the batched engine path)")
+        if args.trace and not args.engine:
+            raise SystemExit("--trace requires --engine (the spans are the "
+                             "batched service's tick)")
         if args.state_dir and (not args.engine or multi):
             raise SystemExit("--state_dir requires --engine and is "
                              "single-host (the snapshot fetch/import are not "
@@ -323,6 +332,8 @@ class Server:
         if tts_params is not None and not args.no_tts_warmup:
             n = self.service.warmup_synthesis()
             print(f"synthesis pool warmup: {n} programs", flush=True)
+        if args.trace:
+            trace.enable(True)
         self._svc_stop = threading.Event()
         self._ticker_thread = threading.Thread(target=self._ticker, daemon=True)
         self._ticker_thread.start()
@@ -562,9 +573,16 @@ class Server:
 
         class Handler(http.server.BaseHTTPRequestHandler):
             def do_GET(h):
+                path, _, query = h.path.partition("?")
+                if path == "/stats":
+                    body = json.dumps(trace_stats(query)).encode()
+                    h.send_response(200)
+                    h.send_header("Content-Type", "application/json")
+                    h.end_headers()
+                    h.wfile.write(body)
+                    return
                 # event dumps for the GUI's ?events= replay mode: basename-
                 # only .jsonl from the server's cwd (no traversal)
-                path = h.path.split("?")[0]
                 if path.endswith(".jsonl") and "/" not in path.strip("/"):
                     fp = os.path.join(os.getcwd(), path.strip("/"))
                     if os.path.isfile(fp):
@@ -627,6 +645,24 @@ class Server:
             self.stop_ticker()
             if http_srv is not None:
                 http_srv.shutdown()
+            if self.args.trace:
+                trace.enable(False)
+
+
+def trace_stats(query: str = "") -> dict:
+    """The /stats answer: the tracer's per-step means of every span and
+    stage (ms) and its counter totals over the last `last` steps of the
+    query (default 100), or that tracing is off."""
+    if not trace.ON:
+        return {"tracing": False,
+                "message": "tracing is off: start the server with --trace"}
+    last = 100
+    for part in query.split("&"):
+        k, _, v = part.partition("=")
+        if k == "last" and v.isdigit():
+            last = int(v)
+    steps = [r for r in trace.snapshot() if r["step"] is not None]
+    return {"tracing": True, **trace.summary(steps[-last:] if last else [])}
 
 
 def _with_voice(cfg, codec_params: dict, voice_wav: str):

@@ -32,6 +32,7 @@ from ..frontend.wav import StreamingResampler
 from ..models import qwen2
 from ..models.audio_llm import chunk_tokens
 from ..pipeline import DuplexPipeline
+from ..utils import logging as trace
 from ..utils.queues import PCMQueue
 from .events import EventSink
 from .ipu import IPUHandle
@@ -39,6 +40,9 @@ from .serializer import ContextSerializer
 from .vad import make_vad
 
 IDENTITIES = ("user", "system")
+# the tracer's counters of vad_stage, by identity
+_WINDOWS = {i: f"frontend.windows.{i}" for i in IDENTITIES}
+_IPU_OPEN = {i: f"frontend.ipu_open.{i}" for i in IDENTITIES}
 
 
 class Frontend:
@@ -100,13 +104,30 @@ def vad_stage(fe: Frontend, identity: str, chunk: np.ndarray,
     enter the serializer; on ipu_sl the pre-onset history enters first as
     ipu_sl + ipu_cl..., then the current window as ipu_cl (onset replay,
     dialog_state_pred.py:639-670). `on_user_onset(ts)` runs at a user
-    ipu_sl (the service's barge-in)."""
+    ipu_sl (the service's barge-in).
+
+    With the tracer on, its time goes to the summed stages `frontend.vad`
+    (the VAD), `frontend.events` (the listeners of its two events),
+    `frontend.gate` (fbank and gating) and `frontend.serialize` (the
+    serializer's adds), and it counts `frontend.windows.<identity>`,
+    `frontend.ipu_open.<identity>` and `frontend.replays` (the onset's
+    replayed features)."""
+    on = trace.ON
+    if on:
+        trace.count(_WINDOWS[identity])
+        t = trace.now()
     ts = time.time()
     ann = fe.vad[identity].predict({"audio": chunk, "time_stamp": ts})
+    if on:
+        t = trace.stage("frontend.vad", t)
     fe.sink.emit("vad_state_update", {"identity": identity,
                                       "prob": ann["prob"], "time_stamp": ts})
+    if on:
+        t = trace.stage("frontend.events", t)
     status = ann["status"]
     if status == "ipu_sl":
+        if on:
+            trace.count(_IPU_OPEN[identity])
         handle = IPUHandle(identity, ts)
         fe.current_ipu[identity] = handle
         if identity == "user":
@@ -122,17 +143,27 @@ def vad_stage(fe: Frontend, identity: str, chunk: np.ndarray,
             if status == "ipu_el":
                 handle.set_end_timestamp(ts)
     if status is not None:
+        if on:
+            t = trace.now()
         fe.sink.emit("vad_event", {
             "identity": identity, "status": status,
             "ipu_id": getattr(fe.current_ipu[identity], "id", None),
             "time_stamp": ts})
+        if on:
+            trace.stage("frontend.events", t)
 
+    if on:
+        t = trace.now()
     gated = fe.gating[identity].process_and_gate(
         {"audio": ann["audio"], "status": status})
+    if on:
+        t = trace.stage("frontend.gate", t)
     if gated is None:
         return
     replay = gated.get("feature_last_chunk", [])
     if replay and gated["status"] == "ipu_sl":
+        if on:
+            trace.count("frontend.replays", len(replay))
         seq = [(f, "ipu_sl" if i == 0 else "ipu_cl")
                for i, f in enumerate(replay)]
         seq.append((gated["feature"], "ipu_cl"))
@@ -143,6 +174,8 @@ def vad_stage(fe: Frontend, identity: str, chunk: np.ndarray,
             "time_stamp": ts + 1e-6 * k, "identity": identity,
             "status": st, "feature": np.asarray(f, np.float32),
             "ipu_id": getattr(fe.current_ipu[identity], "id", None)})
+    if on:
+        trace.stage("frontend.serialize", t)
 
 
 class DuplexSession:

@@ -54,6 +54,7 @@ from ..config import SystemConfig
 from ..models import audio_llm, qwen2
 from ..parallel import collectives
 from ..pipeline import _Core
+from ..utils import logging as trace
 from ..utils.device import resolve_device
 from .session import (SessionStore, all_heads, own_heads, row_from_leaves,
                       row_leaves)
@@ -61,6 +62,7 @@ from .session import (SessionStore, all_heads, own_heads, row_from_leaves,
 SNAPSHOT_VERSION = 1
 
 IDENTITIES = ("user", "system")
+_ROWS_ACTIVE = {i: f"engine.rows_active.{i}" for i in IDENTITIES}
 
 
 class CapacityError(RuntimeError):
@@ -86,11 +88,16 @@ class PendingTick:
         self._probs = probs
 
     def deliver(self) -> Dict[str, Dict[int, dict]]:
+        on = trace.ON
+        if on:
+            trace.begin("engine.deliver")
         results: Dict[str, Dict[int, dict]] = {}
         pending, self._pending = self._pending, None
         probs, self._probs = self._probs, None
         if pending:
             self._engine._deliver_user(results, pending, probs)
+        if on:
+            trace.end()
         return results
 
 
@@ -377,6 +384,8 @@ class ServingEngine:
         with self._lock:
             slot = self.store.slot_of(sid)
             pending = self._pending[identity]
+            if trace.ON and slot in pending:
+                trace.count("engine.submit_overwrites")
             if pending:
                 prev = next(iter(pending.values()))[0]
                 if prev.shape[1:] != chunk.shape[1:]:
@@ -404,11 +413,39 @@ class ServingEngine:
             is_sl[slot] = sl
         return pending, chunks, active, is_sl
 
+    def _local(self, a: np.ndarray) -> np.ndarray:
+        """The rows this process holds of a host [max_sessions, ...] array
+        (all of them without a mesh)."""
+        return a[self.store.row0: self.store.row0 + self.store.local_rows]
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """The rows this process holds of a host [max_sessions, ...] array,
-        on the device (all of them without a mesh)."""
-        a = a[self.store.row0: self.store.row0 + self.store.local_rows]
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        on the device."""
+        return torch.from_numpy(np.ascontiguousarray(self._local(a))).to(self.device)
+
+    def _devs(self, on: bool, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """A tick's host arrays on the device, copied back to back: the
+        `engine.h2d` span (a copy from pageable memory waits for the
+        stream, so the span holds that wait)."""
+        if not on:
+            return [self._dev(a) for a in arrays]
+        trace.begin("engine.h2d")
+        out = [self._dev(a) for a in arrays]
+        trace.end()
+        trace.count("engine.h2d_bytes", sum(self._local(a).nbytes for a in arrays))
+        return out
+
+    def _count_tokens(self, identity: str, active: np.ndarray, is_sl: np.ndarray,
+                      prefix_tokens: int, chunk_toks: int) -> None:
+        """Count one identity's active rows of a tick, its valid tokens (the
+        mask qwen2.forward gets) and the tokens the forward computes for it
+        (prefix and chunk of every row this process holds)."""
+        act, sl = self._local(active), self._local(is_sl)
+        rows = int(act.sum())
+        trace.count(_ROWS_ACTIVE[identity], rows)
+        trace.count("engine.tokens_valid",
+                    rows * chunk_toks + prefix_tokens * int((act & sl).sum()))
+        trace.count("engine.tokens_computed", act.shape[0] * (prefix_tokens + chunk_toks))
 
     def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
         """A per-row result of the rows this process holds, gathered whole
@@ -427,19 +464,40 @@ class ServingEngine:
         pass when both have chunks) without waiting for the results. The
         KV-length mirror advances exactly here. With 'data' > 1 the
         probabilities are all-gathered here (through the host under gloo),
-        so a sharded engine's pipelined tick overlaps little."""
+        so a sharded engine's pipelined tick overlaps little.
+
+        With the tracer on (utils/logging) this is the span
+        `engine.submit` > `engine.roll`, `engine.gather`, `engine.h2d`
+        (the tick's host-to-device copies) and `engine.launch` (the host's
+        enqueue of encoder, adapter, LLM and head), with the counters
+        `engine.rows_active.<identity>`, `engine.tokens_valid`,
+        `engine.tokens_computed`, `engine.h2d_bytes` and
+        `engine.kv_rolled_rows`."""
+        on = trace.ON
+        if on:
+            trace.begin("engine.submit")
         try:
-            return self._tick_submit()
+            return self._tick_submit(on)
         except torch.cuda.OutOfMemoryError as e:
             raise CapacityError(
                 f"device memory exhausted in the serving tick "
                 f"({self.num_active} active sessions)",
                 active_sessions=self.num_active) from e
+        finally:
+            if on:
+                trace.end()
 
-    def _tick_submit(self) -> PendingTick:
+    def _tick_submit(self, on: bool) -> PendingTick:
+        if on:
+            trace.begin("engine.roll")
         self._maybe_roll_kv()
+        if on:
+            trace.end()
+            trace.begin("engine.gather")
         user = self._gather_pending("user")
         system = self._gather_pending("system")
+        if on:
+            trace.end()
         acfg = self.cfg.audio_llm
         params = self.core.params
         p_user = int(self.core.user_prefix_embeds.shape[0])
@@ -447,18 +505,24 @@ class ServingEngine:
 
         if user is not None and system is not None and \
                 user[1].shape == system[1].shape:
+            u_toks = audio_llm.chunk_tokens(user[1].shape[1])
+            s_toks = audio_llm.chunk_tokens(system[1].shape[1])
+            if on:
+                self._count_tokens("user", user[2], user[3], p_user, u_toks)
+                self._count_tokens("system", system[2], system[3], p_system, s_toks)
+            dev = self._devs(on, user[1], user[3], user[2],
+                             system[1], system[3], system[2])
+            if on:
+                trace.begin("engine.launch")
             with self._lock, torch.no_grad():
                 probs, _ = audio_llm.recognize_step_dual(
-                    params, acfg, self._dev(user[1]), self._dev(user[3]),
-                    self._dev(user[2]), self._dev(system[1]),
-                    self._dev(system[3]), self._dev(system[2]),
-                    self.core.user_prefix_embeds,
+                    params, acfg, *dev, self.core.user_prefix_embeds,
                     self.core.system_prefix_embeds, self.store.caches)
                 probs = self._all_rows(probs)
-            self._advance_mirror(user[2], user[3], p_user,
-                                 audio_llm.chunk_tokens(user[1].shape[1]))
-            self._advance_mirror(system[2], system[3], p_system,
-                                 audio_llm.chunk_tokens(system[1].shape[1]))
+            if on:
+                trace.end()
+            self._advance_mirror(user[2], user[3], p_user, u_toks)
+            self._advance_mirror(system[2], system[3], p_system, s_toks)
             return PendingTick(self, user[0], probs)
 
         user_pending, user_probs = None, None
@@ -468,14 +532,21 @@ class ServingEngine:
             pending, chunks, active, is_sl = batch
             prefix = (self.core.user_prefix_embeds if identity == "user"
                       else self.core.system_prefix_embeds)
+            p_tokens = p_user if identity == "user" else p_system
+            toks = audio_llm.chunk_tokens(chunks.shape[1])
+            if on:
+                self._count_tokens(identity, active, is_sl, p_tokens, toks)
+            d_chunks, d_sl, d_active = self._devs(on, chunks, is_sl, active)
+            if on:
+                trace.begin("engine.launch")
             with self._lock, torch.no_grad():
                 probs, _ = audio_llm.recognize_step(
-                    params, acfg, identity, self._dev(chunks), self._dev(is_sl),
-                    prefix, self.store.caches, active=self._dev(active))
+                    params, acfg, identity, d_chunks, d_sl,
+                    prefix, self.store.caches, active=d_active)
                 probs = self._all_rows(probs)
-            self._advance_mirror(active, is_sl,
-                                 p_user if identity == "user" else p_system,
-                                 audio_llm.chunk_tokens(chunks.shape[1]))
+            if on:
+                trace.end()
+            self._advance_mirror(active, is_sl, p_tokens, toks)
             if identity == "user":
                 user_pending, user_probs = pending, probs
         return PendingTick(self, user_pending, user_probs)
@@ -519,6 +590,8 @@ class ServingEngine:
         need = lengths > cap - margin
         if not need.any():
             return
+        if trace.ON:
+            trace.count("engine.kv_rolled_rows", int(need.sum()))
         # post-roll length targets half the usable window
         target = (cap - margin) // 2
         keep = np.minimum(np.maximum(target - self.store.prefix_len, 16),

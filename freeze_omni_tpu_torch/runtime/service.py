@@ -24,6 +24,7 @@ import numpy as np
 from ..config import SystemConfig
 from ..duplex.engine import IDENTITIES, Frontend, vad_stage
 from ..duplex.events import EventSink
+from ..utils import logging as trace
 from .engine import ServingEngine
 
 
@@ -66,6 +67,7 @@ class DuplexService:
         # decisions run one tick late in exchange for capacity
         self._pipeline = cfg.serving.pipeline_ticks
         self._pending_tick = None
+        self.steps = 0   # service steps taken: the tracer's step index
         self.resp_threshold = cfg.duplex.resp_threshold
         self.tts_params = tts_params
         self._tts = None
@@ -120,9 +122,26 @@ class DuplexService:
     def step(self) -> bool:
         """One service tick: advance every session's frontend, submit at most
         one feature per (session, identity), run the batched step, deliver
-        predictions. Returns True if any work was done."""
+        predictions. Returns True if any work was done.
+
+        With the tracer on (utils/logging) the step's record holds the
+        spans `service.step` > `service.frontend` (the session loop),
+        `engine.submit`, `engine.deliver` and `service.decide` (from the
+        end of the delivery to the end of the step), which tile it."""
+        self.steps += 1
+        if not trace.ON:
+            return self._step(False)
+        trace.step_begin(self.steps)
+        try:
+            return self._step(True)
+        finally:
+            trace.step_end(sessions=len(self.sessions))
+
+    def _step(self, on: bool) -> bool:
         worked = False
         submitted: Dict[str, dict] = {}  # sid -> feature meta for user chunks
+        if on:
+            trace.begin("service.frontend")
         with self._lock:
             sessions = dict(self.sessions)
 
@@ -144,6 +163,8 @@ class DuplexService:
                     worked = True
                     self._vad_stage(fe, identity, chunk)
             # one serialized feature per identity per tick
+            if on:
+                t = trace.now()
             taken = set()
             while len(taken) < len(IDENTITIES):
                 feat = fe.serializer.get_next_feature()
@@ -167,7 +188,14 @@ class DuplexService:
                     break
                 if ident == "user":
                     submitted[sid] = feat
+            if on:
+                trace.stage("frontend.serialize", t)
+                waiting = len(fe.serializer)
+                trace.count("serializer.waiting.sum", waiting)
+                trace.peak("serializer.waiting.max", waiting)
 
+        if on:
+            trace.end()   # service.frontend
         if self._pipeline:
             handle = self.engine.tick_submit()
             prev, self._pending_tick = self._pending_tick, (handle, submitted)
@@ -179,6 +207,8 @@ class DuplexService:
             worked = worked or bool(results) or bool(submitted)
         else:
             results = self.engine.tick()
+        if on:
+            trace.begin("service.decide")   # closed by the step's end
         self._decide_all(results, submitted, sessions)
         if self._pipeline:
             # capacity mode: the text continuation and the synthesis-pool
